@@ -1,0 +1,53 @@
+"""Model construction from the flat parameter namespace.
+
+Counterpart of ``shufflingvideosfortsg_tpu/models/build.py:34-75``. There
+is no ``fused_inference`` switch: the device of the tensors picks the
+implementation (kernels on a CUDA device, their plain versions on the
+CPU).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Union
+
+import torch
+
+from .gmd import GMD
+
+
+def model_config_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    if str(params.get('precision', 'f32')).lower() in ('bf16', 'bfloat16'):
+        raise NotImplementedError('precision bf16 is not ported yet; the '
+                                  'kernels take float32 only')
+    return dict(
+        video_feature_dim=params['video_feature_dim'],
+        word_dim=params['sent_embedding_dim'],
+        sent_hidden=params['sent_rnn_hiddendim'],
+        sent_layers=params['sent_rnn_layers'],
+        video_encoder_name=params['video_encoder'],
+        video_hidden=params['video_rnn_hiddendim'],
+        video_layers=params['video_rnn_layers'],
+        # the deepened QAVE of the pipeline-parallel trainer keeps its
+        # checkpoints sequential, so test drivers build the same depth
+        nblocks=(int(params['pipeline_stages']) + 1
+                 if params.get('pipeline_stages') else 2),
+        cross_name=params['crossmodal'],
+        predictor_name=params['predictor'],
+        mlp_hidden_dim=params['mlp_hidden_dim'],
+        video_if_mask=bool(params['mask']),
+        dropout=params['dropout'],
+    )
+
+
+def build_model(params: Dict[str, Any], kind: str = 'gmd',
+                device: Union[str, torch.device] = 'cuda') -> GMD:
+    """Build the model on the CPU with torch's default (seeded by the
+    caller) initialisation, then move it to ``device``."""
+    if kind.lower() not in ('gmd', 'qave_match'):
+        raise NotImplementedError(f'model kind {kind!r} is not ported yet '
+                                  '(only GMD)')
+    model = GMD(m_temp=params['m_temp'],
+                m_pred_hidden=params['m_pred_hidden'],
+                m_pred_activ=params['m_pred_activ'],
+                **model_config_from_params(params))
+    return model.to(device)

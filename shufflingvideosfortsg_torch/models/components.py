@@ -1,0 +1,224 @@
+"""Model components on the GMD evaluation path.
+
+Counterpart of ``shufflingvideosfortsg_tpu/models/components.py``
+(``:35-351`` and ``:561-630``): only the classes GMD evaluation runs, with
+submodules named so that ``state_dict()`` keys equal the reference torch
+keys (``rnn_cell.lstm.*``, ``attention.{W_s,W_a,w}``, ``predict.predict.{0,2}``,
+``foreback_context.0`` ...). ``TDense`` is ``nn.Linear`` with torch's
+default init; LayerNorm is ``nn.LayerNorm`` (eps 1e-5). The other span
+predictors, video encoders, CSMM temporal models and CMI modes arrive with
+the variants slice and raise here.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..ops.losses import mask_logits
+from ..ops.rnn import BiLSTM
+from ..ops.scdm_fused import scdm_attention_fused
+
+
+def _rnn_cell(input_size: int, hidden: int, layers: int,
+              dropout: float) -> nn.ModuleDict:
+    """The reference's ``rnn_cell`` holder: keys ``rnn_cell.lstm.*``."""
+    return nn.ModuleDict({'lstm': BiLSTM(input_size, hidden, layers, dropout)})
+
+
+class SentenceRNNEncoder(nn.Module):
+    """Linear word embed + BiLSTM over all N word slots (``sent_mask`` is
+    ignored, as in the reference); the sentence embedding is the last
+    layer's final forward and backward states, concatenated."""
+
+    def __init__(self, word_dim: int, hidden_dim: int, n_layers: int,
+                 dropout: float):
+        super().__init__()
+        self.textual_dim = 2 * hidden_dim
+        self.word_embed = nn.Linear(word_dim, word_dim)
+        self.rnn_cell = _rnn_cell(word_dim, hidden_dim, n_layers, dropout)
+
+    def forward(self, query_feat: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        word_encoding, hn, _ = self.rnn_cell['lstm'](self.word_embed(query_feat))
+        return word_encoding, torch.cat([hn[-2], hn[-1]], dim=-1)
+
+
+class SCDMAttention(nn.Module):
+    """Additive word attention giving per-frame text context [B, T, Ds],
+    through the K2 kernel (``ops/scdm_fused.py``)."""
+
+    def __init__(self, video_dim: int, sent_dim: int, hidden_dim: int):
+        super().__init__()
+        self.W_s = nn.Linear(sent_dim, hidden_dim, bias=False)
+        self.W_a = nn.Linear(video_dim, hidden_dim)
+        self.w = nn.Linear(hidden_dim, 1, bias=False)
+
+    def forward(self, video_feat: torch.Tensor, sent_feat: torch.Tensor
+                ) -> torch.Tensor:
+        sent_feat = sent_feat.contiguous()
+        return scdm_attention_fused(self.W_a(video_feat).contiguous(),
+                                    self.W_s(sent_feat).contiguous(),
+                                    self.w.weight[0], sent_feat)
+
+
+_GATES = {'sigmoid': torch.sigmoid, 'relu': torch.relu, 'tanh': torch.tanh}
+
+
+class RNNRecalibrationLayer(nn.Module):
+    """One QAVE block: BiLSTM -> SCDM context -> channel gate. Split into
+    ``run_rnn``/``apply_gate`` because the query-independent recurrence
+    can run once per video for many queries (the serving slice)."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, n_layers: int,
+                 sent_dim: int, ca_activ: str, dropout: float):
+        super().__init__()
+        self.ca_activ = ca_activ
+        self.rnn_cell = _rnn_cell(input_dim, hidden_dim, n_layers, dropout)
+        self.attention = SCDMAttention(2 * hidden_dim, sent_dim, 2 * hidden_dim)
+        self.sent_linear = nn.Linear(sent_dim, 2 * hidden_dim)
+
+    def run_rnn(self, video_feat: torch.Tensor) -> torch.Tensor:
+        return self.rnn_cell['lstm'](video_feat)[0]
+
+    def apply_gate(self, rnn_output: torch.Tensor,
+                   word_feat: torch.Tensor) -> torch.Tensor:
+        channel_attn = self.sent_linear(self.attention(rnn_output, word_feat))
+        gate = _GATES.get(self.ca_activ)
+        if gate is not None:
+            channel_attn = gate(channel_attn)
+        return rnn_output * channel_attn
+
+    def forward(self, video_feat: torch.Tensor,
+                word_feat: torch.Tensor) -> torch.Tensor:
+        return self.apply_gate(self.run_rnn(video_feat), word_feat)
+
+
+class QueryAwareEncoder(nn.Module):
+    """QAVE: a stack of recalibration blocks and a final LayerNorm."""
+
+    def __init__(self, input_dim: int, hidden_dim: int, n_layers: int,
+                 nblocks: int, sent_dim: int, dropout: float,
+                 ca_activ: str = 'sigmoid'):
+        super().__init__()
+        self.visual_dim = 2 * hidden_dim
+        self.blocks = nn.ModuleList(
+            RNNRecalibrationLayer(input_dim if i == 0 else 2 * hidden_dim,
+                                  hidden_dim, n_layers, sent_dim, ca_activ,
+                                  dropout)
+            for i in range(nblocks))
+        self.norm = nn.LayerNorm(2 * hidden_dim, eps=1e-5)
+
+    def forward(self, video_feat: torch.Tensor,
+                word_feat: torch.Tensor) -> torch.Tensor:
+        residual = video_feat
+        for block in self.blocks:
+            residual = block(residual, word_feat)
+        return self.norm(residual)
+
+
+def _check_cmi(name: str) -> None:
+    if name.lower() not in ('videosentconcat', 'vs', 'b'):
+        raise NotImplementedError(f'cross-modal interaction {name!r} is not '
+                                  'ported yet (only "vs")')
+
+
+def cmi_dim(name: str, video_dim: int, sent_dim: int) -> int:
+    _check_cmi(name)
+    return video_dim + sent_dim
+
+
+def cmi_apply(name: str, video_feat: torch.Tensor, word_feat: torch.Tensor,
+              sent_feat: torch.Tensor) -> torch.Tensor:
+    """'vs': the sentence embedding tiled over time, after the video."""
+    _check_cmi(name)
+    B, T, _ = video_feat.shape
+    tiled = sent_feat[:, None, :].expand(B, T, sent_feat.shape[-1])
+    return torch.cat([video_feat, tiled], dim=-1)
+
+
+def _finalize(start_logits: torch.Tensor, end_logits: torch.Tensor,
+              v_mask: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if v_mask is not None:
+        start_logits = mask_logits(start_logits, v_mask)
+        end_logits = mask_logits(end_logits, v_mask)
+    return (torch.softmax(start_logits.float(), dim=1),
+            torch.softmax(end_logits.float(), dim=1))
+
+
+class MLPPredictor(nn.Module):
+    """Two tanh-MLP heads over the fused features (the default predictor)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int):
+        super().__init__()
+        self.start_mlp_1 = nn.Linear(in_dim, hidden_dim)
+        self.start_mlp_2 = nn.Linear(hidden_dim, 1)
+        self.end_mlp_1 = nn.Linear(in_dim, hidden_dim)
+        self.end_mlp_2 = nn.Linear(hidden_dim, 1)
+
+    def forward(self, feat: torch.Tensor,
+                v_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        s = self.start_mlp_2(torch.tanh(self.start_mlp_1(feat)))[..., 0]
+        e = self.end_mlp_2(torch.tanh(self.end_mlp_1(feat)))[..., 0]
+        return _finalize(s, e, v_mask)
+
+
+class SpanPredictorBoundary(nn.Module):
+    """Name-dispatching holder (keys ``span_predictor.predictor.*``)."""
+
+    def __init__(self, predictor_name: str, in_dim: int, mlp_hidden_dim: int):
+        super().__init__()
+        if predictor_name not in ('mlp', 'a'):
+            raise NotImplementedError(f'span predictor {predictor_name!r} is '
+                                      'not ported yet (only "mlp")')
+        self.predictor = MLPPredictor(in_dim, mlp_hidden_dim)
+
+    def forward(self, feat: torch.Tensor,
+                v_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.predictor(feat, v_mask)
+
+
+_ACTIVATIONS = {'tanh': nn.Tanh, 'sigmoid': nn.Sigmoid}
+
+
+class VideoTextSemanticMatch(nn.Module):
+    """CSMM: video ‖ tiled sentence -> 2-layer MLP -> per-frame match
+    logit (the raw ``predict_2`` output, no sigmoid)."""
+
+    def __init__(self, video_dim: int, sent_dim: int, temporal_name: str,
+                 predict_hidden: int, predict_activation: str):
+        super().__init__()
+        if temporal_name.lower() != 'none':
+            raise NotImplementedError(f'CSMM temporal {temporal_name!r} is '
+                                      'not ported yet (only "none")')
+        act = _ACTIVATIONS.get(predict_activation.lower(), nn.ReLU)
+        self.predict = nn.ModuleDict({'predict': nn.Sequential(
+            nn.Linear(video_dim + sent_dim, predict_hidden), act(),
+            nn.Linear(predict_hidden, 1))})
+
+    def forward(self, video_feat: torch.Tensor, query_feat: torch.Tensor,
+                video_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        B, T, _ = video_feat.shape
+        q = (query_feat[:, None, :] if query_feat.dim() == 2 else query_feat)
+        cross_feat = torch.cat(
+            [video_feat, q.expand(B, T, query_feat.shape[-1])], dim=-1)
+        return self.predict['predict'](cross_feat)[..., 0], cross_feat
+
+
+class MomentPoolingTOD(nn.Module):
+    """Temporal-order discriminator: its parameters only, so reference
+    checkpoints load strictly. Evaluation never calls it; its forward
+    arrives with the training slice."""
+
+    def __init__(self, visual_dim: int):
+        super().__init__()
+        self.foreback_context = nn.Sequential(
+            nn.Linear(2 * visual_dim, visual_dim))
+        self.fc_classifier_domain_video = nn.Sequential(
+            nn.Linear(3 * visual_dim, 2))

@@ -1,0 +1,90 @@
+"""Bidirectional multi-layer LSTM on the K1 recurrence kernel.
+
+Counterpart of ``shufflingvideosfortsg_tpu/ops/rnn.py::BiLSTM`` on its
+flat-layout path. Parameters carry ``torch.nn.LSTM``'s names and shapes
+(``weight_ih_l{k}[_reverse]`` [4H, D], ``weight_hh_l{k}[_reverse]`` [4H, H],
+both biases [4H], gate order i, f, g, o), so reference state dicts load
+strictly; the module does not use ``nn.LSTM``. Per layer, the input
+projection of both directions is one [T*B, D] @ [D, 8H] product into the
+flat [T, B, 8H] layout, and the recurrence is
+:func:`~shufflingvideosfortsg_torch.ops.lstm_scan.lstm_recurrence`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .lstm_scan import lstm_recurrence
+
+_DIRECTIONS = ('', '_reverse')
+
+
+class BiLSTM(nn.Module):
+    """Bidirectional ``num_layers``-deep LSTM over [B, T, D] inputs.
+
+    Returns (outputs [B, T, 2H], hn [2L, B, H], cn [2L, B, H]) with hn/cn
+    layer-major and forward before backward, so ``hn[-2], hn[-1]`` are the
+    last layer's final forward and backward states. Dropout applies to
+    each layer's output except the last, in training only.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 num_layers: int = 1, dropout: float = 0.0):
+        super().__init__()
+        self.input_size = input_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.dropout = dropout
+        H = hidden_size
+        for k in range(num_layers):
+            d_in = input_size if k == 0 else 2 * H
+            for sfx in _DIRECTIONS:
+                self.register_parameter(f'weight_ih_l{k}{sfx}',
+                                        nn.Parameter(torch.empty(4 * H, d_in)))
+                self.register_parameter(f'weight_hh_l{k}{sfx}',
+                                        nn.Parameter(torch.empty(4 * H, H)))
+                self.register_parameter(f'bias_ih_l{k}{sfx}',
+                                        nn.Parameter(torch.empty(4 * H)))
+                self.register_parameter(f'bias_hh_l{k}{sfx}',
+                                        nn.Parameter(torch.empty(4 * H)))
+        self.reset_parameters()
+
+    def reset_parameters(self) -> None:
+        """``nn.LSTM``'s init: every tensor U(-1/sqrt(H), 1/sqrt(H))."""
+        bound = 1.0 / math.sqrt(self.hidden_size)
+        for p in self.parameters():
+            nn.init.uniform_(p, -bound, bound)
+
+    def _layer_weights(self, k: int):
+        p = {n: [getattr(self, f'{n}_l{k}{sfx}') for sfx in _DIRECTIONS]
+             for n in ('weight_ih', 'weight_hh', 'bias_ih', 'bias_hh')}
+        w_ih = torch.cat(p['weight_ih'], 0)                            # [8H, D]
+        b = torch.cat([p['bias_ih'][i] + p['bias_hh'][i] for i in (0, 1)])
+        w_hh = torch.stack([w.t() for w in p['weight_hh']]).contiguous()  # [2, H, 4H]
+        return w_ih, b, w_hh
+
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        B, T, _ = x.shape
+        H = self.hidden_size
+        hn, cn = [], []
+        inputs = x
+        for k in range(self.num_layers):
+            w_ih, b, w_hh = self._layer_weights(k)
+            # [B, T, D] -> [T*B, D] (a view when the input is the previous
+            # layer's [T, B, 2H] output seen as [B, T, 2H])
+            flat_in = inputs.transpose(0, 1).reshape(T * B, inputs.shape[-1])
+            xw = torch.addmm(b, flat_in, w_ih.t()).view(T, B, 8 * H)
+            out, h_T, c_T = lstm_recurrence(xw, w_hh)
+            hn += [h_T[0], h_T[1]]
+            cn += [c_T[0], c_T[1]]
+            layer_out = out.transpose(0, 1)
+            if k + 1 < self.num_layers and self.dropout > 0.0:
+                layer_out = F.dropout(layer_out, self.dropout, self.training)
+            inputs = layer_out
+        return inputs, torch.stack(hn), torch.stack(cn)

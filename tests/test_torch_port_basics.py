@@ -1,0 +1,163 @@
+"""The PyTorch port's ground rules: it imports no JAX, its CUDA entry
+points never fall back to the CPU, and its kernel wrappers take their
+plain versions only for CPU tensors."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import shufflingvideosfortsg_torch
+from shufflingvideosfortsg_torch import _kernels
+from shufflingvideosfortsg_torch.cli import main_test, parse_params
+from shufflingvideosfortsg_torch.ops.lstm_scan import (lstm_recurrence,
+                                                       lstm_recurrence_plain)
+from shufflingvideosfortsg_torch.ops.scdm_fused import (scdm_attention_fused,
+                                                        scdm_attention_plain)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.dirname(shufflingvideosfortsg_torch.__file__)
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'shufflingvideosfortsg_tpu')
+
+
+@pytest.fixture(autouse=True)
+def _skip_without_cuda(request):
+    if request.node.get_closest_marker('requires_cuda') and \
+            not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+
+
+def _port_modules():
+    return [m.name for m in pkgutil.walk_packages(
+        [PKG_DIR], prefix='shufflingvideosfortsg_torch.')]
+
+
+def test_port_imports_no_jax_in_a_fresh_process():
+    """tests/conftest.py imports jax, so the check runs in a subprocess."""
+    code = (
+        'import importlib, sys\n'
+        f'for m in {_port_modules()!r} + ["chip_smoke"]:\n'
+        '    importlib.import_module(m)\n'
+        f'bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})\n'
+        'assert not bad, bad\n'
+        'print("ok", len(sys.modules))\n')
+    res = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith('ok')
+
+
+def test_port_sources_import_no_jax():
+    files = [os.path.join(REPO, 'chip_smoke.py')]
+    for root, _, names in os.walk(PKG_DIR):
+        files += [os.path.join(root, n) for n in names if n.endswith('.py')]
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split('.')[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [node.module.split('.')[0]]
+            else:
+                continue
+            assert not set(roots) & set(FORBIDDEN), (path, node.lineno)
+
+
+def test_device_flag_defaults_to_cuda():
+    assert parse_params([])['device'] == 'cuda'
+    assert parse_params(['--device', 'cpu'])['device'] == 'cpu'
+
+
+def test_device_cuda_without_a_card_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    params = parse_params(['--cfg', 'charades_cd_i3d.yml',
+                           '--runs', str(tmp_path / 'runs')])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        main_test(params)
+    assert not (tmp_path / 'runs').exists()  # raised before any work
+
+
+def _k1_inputs(rng, T=5, B=3, H=8, dtype=torch.float32):
+    xw = torch.from_numpy(rng.randn(T, B, 8 * H).astype(np.float32))
+    w = torch.from_numpy((rng.randn(2, H, 4 * H) * 0.2).astype(np.float32))
+    return xw.to(dtype), w.to(dtype)
+
+
+def _k2_inputs(rng, B=2, T=6, N=5, Dh=8, Ds=4, dtype=torch.float32):
+    arrays = [rng.randn(B, T, Dh), rng.randn(B, N, Dh), rng.randn(Dh),
+              rng.randn(B, N, Ds)]
+    return [torch.from_numpy(a.astype(np.float32)).to(dtype) for a in arrays]
+
+
+def test_wrappers_take_the_plain_version_on_cpu_tensors():
+    rng = np.random.RandomState(0)
+    before = lstm_recurrence.launches, scdm_attention_fused.launches
+    xw, w = _k1_inputs(rng)
+    for got, want in zip(lstm_recurrence(xw, w), lstm_recurrence_plain(xw, w)):
+        assert torch.equal(got, want)
+    args = _k2_inputs(rng)
+    assert torch.equal(scdm_attention_fused(*args), scdm_attention_plain(*args))
+    # the plain version is no launch
+    assert (lstm_recurrence.launches, scdm_attention_fused.launches) == before
+
+
+def test_wrappers_raise_on_bf16():
+    rng = np.random.RandomState(1)
+    with pytest.raises(TypeError, match='float32'):
+        lstm_recurrence(*_k1_inputs(rng, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match='float32'):
+        scdm_attention_fused(*_k2_inputs(rng, dtype=torch.bfloat16))
+
+
+def test_wrappers_never_fall_back_off_the_cpu():
+    """A tensor that is not on the CPU launches the kernel or raises; a
+    'meta' tensor (neither CPU nor CUDA) must raise, not compute."""
+    xw = torch.empty(4, 2, 64, device='meta')
+    w = torch.empty(2, 8, 32, device='meta')
+    with pytest.raises(ValueError, match='CUDA'):
+        lstm_recurrence(xw, w)
+    args = [torch.empty(s, device='meta')
+            for s in ((2, 6, 8), (2, 5, 8), (8,), (2, 5, 4))]
+    with pytest.raises(ValueError, match='CUDA'):
+        scdm_attention_fused(*args)
+
+
+def test_wrappers_check_shapes():
+    rng = np.random.RandomState(2)
+    xw, w = _k1_inputs(rng)
+    with pytest.raises(ValueError, match='w_hh'):
+        lstm_recurrence(xw, w[:, :4])
+    vp, sp, wv, sf = _k2_inputs(rng)
+    with pytest.raises(ValueError, match='disagree'):
+        scdm_attention_fused(vp, sp[:, :, :4], wv, sf)
+
+
+def test_missing_nvcc_raises_a_clear_error(tmp_path, monkeypatch):
+    monkeypatch.setattr(_kernels.shutil, 'which', lambda name: None)
+    monkeypatch.setenv('CUDA_HOME', str(tmp_path))
+    with pytest.raises(RuntimeError, match='nvcc not found'):
+        _kernels.nvcc_path()
+
+
+def test_kernel_build_dir_is_ignored_by_git():
+    with open(os.path.join(REPO, '.gitignore')) as f:
+        ignored = f.read().split()
+    assert 'shufflingvideosfortsg_torch/_build/' in ignored
+
+
+def test_requires_cuda_marker_is_registered(request):
+    markers = ' '.join(request.config.getini('markers'))
+    assert 'requires_cuda' in markers
+
+
+@pytest.mark.requires_cuda
+def test_requires_cuda_tests_run_only_with_a_card():
+    """Skips here through the autouse fixture; on a card it runs."""
+    assert torch.cuda.is_available()
