@@ -26,7 +26,8 @@ from typing import Optional, Tuple
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, '_build')
-SOURCES = ('lstm_scan.cu', 'scdm.cu')
+SOURCES = ('lstm_scan.cu', 'lstm_bwd.cu', 'scdm.cu')
+HEADERS = ('common.cuh',)
 MAX_SMEM_BYTES = 232448  # dynamic shared memory one block may use on Hopper
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 # no --use_fast_math: tanhf/expf keep the f32 results inside the stated
@@ -37,8 +38,10 @@ COMPILE_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    'svtsg_lstm_recurrence': [_P] * 7 + [_I] * 4 + [_P],
+    'svtsg_lstm_recurrence': [_P] * 8 + [_I] * 4 + [_P],
     'svtsg_lstm_smem_bytes': [_I, _I],
+    'svtsg_lstm_bwd': [_P] * 10 + [_I] * 4 + [_P],
+    'svtsg_lstm_bwd_smem_bytes': [_I, _I],
     'svtsg_scdm_attention': [_P] * 5 + [_I] * 6 + [_P],
     'svtsg_scdm_smem_bytes': [_I, _I, _I],
     'svtsg_scdm_max_words': [],
@@ -62,7 +65,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(' '.join(COMPILE_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), 'rb') as f:
             h.update(f.read())
     return h.hexdigest()[:16]

@@ -1,15 +1,19 @@
-"""The GMD evaluation driver.
+"""The GMD train and test drivers.
 
 Counterpart of ``shufflingvideosfortsg_tpu/cli.py``: ``build_argparser``
 and ``parse_params`` (``:50-105``, the same flags and merge rules, plus
-``--device``) and ``main_test`` (``:1041-1113``). The training drivers
-arrive with the training slice.
+``--device``), ``main_train`` with ``run_valid`` and ``_print_statistics``
+(``:756-1036``, the per-batch loop) and ``main_test`` (``:1041-1113``).
 
-``--device`` defaults to ``cuda``; without a card the driver raises rather
+``--device`` defaults to ``cuda``; without a card the drivers raise rather
 than run on the CPU. ``--device cpu`` runs the kernels' plain versions.
 Not ported yet, and refused: ``eval_topk > 1``, featpack feature
-directories (with the resident bank and its grouped eval loop) and
-``precision: bf16``.
+directories (with the resident bank and its grouped and chunked loops),
+``precision: bf16``, and in training ``multi_seed``, ``pipeline_stages``,
+``tensor_parallel``, ``fsdp``, ``grad_accum_steps > 1``,
+``async_checkpoint`` and ``--start_from auto``. A non-finite training
+loss raises at the watchdog's cadence; the JAX watchdog's emergency
+checkpoint is not ported.
 """
 
 from __future__ import annotations
@@ -17,8 +21,9 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import math
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -27,7 +32,9 @@ from .config import DEFAULTS, load_config
 from .data.pipeline import BatchLoader, SentenceGroundingDataset
 from .eval.iou import retrieval_eval
 from .models.build import build_model
-from .train.steps import make_gmd_test_step, to_device
+from .train.state import TrainState
+from .train.steps import (HOST_PAIR_KEYS, TRAIN_KEYS, make_gmd_test_step,
+                          make_gmd_train_step, make_gmd_valid_step, to_device)
 from .utils.interop import load_reference_ckp
 from .utils.saver import RunManager
 
@@ -168,6 +175,162 @@ def _log_eval_batches(logger, tag, losses: List[float], mious: List[float],
                     len(losses), mean_dt, losses[idx], mious[idx])
 
 
+def _seeded_model(params: Dict[str, Any], device: torch.device):
+    """GMD with torch's default initialisation under ``params['seed']``,
+    built on the CPU (the same weights whatever the device) and moved."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(params.get('seed', 123))
+        model = build_model(params, 'gmd', device='cpu')
+    return model.to(device)
+
+
+def _refuse_unported_training(params: Dict[str, Any]) -> None:
+    refused = {
+        'multi_seed': int(params.get('multi_seed', 0) or 0) > 1,
+        'pipeline_stages': int(params.get('pipeline_stages', 0) or 0) > 0,
+        'tensor_parallel': int(params.get('tensor_parallel', 0) or 0) > 1,
+        'fsdp': bool(params.get('fsdp')),
+        'grad_accum_steps': int(params.get('grad_accum_steps', 1) or 1) > 1,
+        'async_checkpoint': bool(params.get('async_checkpoint')),
+        'start_from auto':
+            str(params.get('start_from') or '').lower() == 'auto',
+    }
+    named = [k for k, on in refused.items() if on]
+    if named:
+        raise NotImplementedError(f'{", ".join(named)}: not ported to the '
+                                  'PyTorch trainer yet')
+
+
+def _avg(metrics_list, key) -> float:
+    return float(np.mean([float(m[key]) for m in metrics_list]))
+
+
+def _fetch(outs: List[Dict[str, torch.Tensor]]) -> List[Dict[str, np.ndarray]]:
+    return [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]
+
+
+def main_train(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Train GMD for ``params['epoch']`` epochs: a valid pass every
+    ``test_interval`` epochs (submit JSON under ``submits/``) and a
+    reference ``.ckp`` every ``save_model_interval`` epochs and at the
+    end. Returns the loss/mIoU statistics it prints."""
+    device = resolve_device(params.get('device', 'cuda'))
+    _refuse_unported_training(params)
+    logger = setup_logger(params['alias'])
+    saver = RunManager(params)
+    lg = str(params['vfeat_fn']).lower() == 'lg'
+    seed = params.get('seed', 123)
+
+    model = _seeded_model(params, device)
+    train_set = make_dataset(params, 'train_data', 'train_featpath', 'train')
+    valid_set = make_dataset(params, 'val_data', 'valid_featpath', 'valid')
+    host_pair = not params.get('on_device_aug', True)
+    train_loader = BatchLoader(train_set, params['batch_size'][0],
+                               shuffle=True, seed=seed,
+                               host_pair_aug=host_pair)
+    valid_loader = BatchLoader(valid_set, params['batch_size'][2],
+                               shuffle=False)
+    if params.get('start_from'):
+        model.load_state_dict(load_reference_ckp(params['start_from']))
+        logger.warning('resume from checkpoint: %s (weights only)',
+                       params['start_from'])
+    state = TrainState(model, params, steps_per_epoch=len(train_loader))
+    train_step = make_gmd_train_step(model, state, params, lg)
+    valid_step = make_gmd_valid_step(model, params, lg)
+    keys = HOST_PAIR_KEYS if host_pair else TRAIN_KEYS
+    train_gen = torch.Generator(device).manual_seed(seed)
+    # validation draws its pseudo videos from a stream of its own
+    valid_gen = torch.Generator(device).manual_seed(seed + 0x5a11d)
+
+    statistics = {'loss': {}, 'mIoU': {}}
+    log_iv = params['batch_log_interval']
+    check_iv = params.get('nan_check_interval', 100)
+    for epoch in range(params['epoch']):
+        t0 = time.time()
+        outs = []
+        for idx, batch in enumerate(train_loader):
+            t_b = time.time()
+            metrics = train_step(to_device(batch, device, keys), train_gen)
+            outs.append(metrics)
+            do_log = log_iv != -1 and idx % log_iv == 0
+            if do_log or idx % check_iv == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                if do_log:
+                    logger.info(
+                        'train: epoch[%03d], batch[%04d/%04d], elapsed '
+                        'time=%0.2fs, loss: %03.3f, miou: %03.3f, loss_g: '
+                        '%03.3f, loss_intra: %03.3f, loss_inter: %03.3f, '
+                        'loss_d: %03.3f', epoch, idx, len(train_loader),
+                        time.time() - t_b, m['loss'], m['miou'], m['loss_g'],
+                        m['loss_intra'], m['loss_inter'], m['loss_d'])
+                if not math.isfinite(m['loss']):
+                    raise FloatingPointError(
+                        f'non-finite loss {m["loss"]} at epoch {epoch} batch '
+                        f'{idx}')
+        fetched = _fetch(outs)
+        avg_loss = _avg(fetched, 'loss')
+        epoch_secs = time.time() - t0
+        logger.info('epoch [%03d]: elapsed time:%0.2fs, avg loss: %03.3f, '
+                    'miou: %03.3f', epoch, epoch_secs, avg_loss,
+                    _avg(fetched, 'miou'))
+        saver.log_metrics({'epoch': epoch, 'phase': 'train',
+                           'seconds': epoch_secs, 'loss': avg_loss,
+                           **{k: _avg(fetched, k) for k in (
+                               'miou', 'loss_g', 'loss_intra', 'loss_inter',
+                               'loss_d')}})
+        if (epoch + 1) % params['test_interval'] == 0 or epoch == 0:
+            statistics['loss'][epoch] = round(avg_loss, 3)
+        if (epoch + 1) % params['test_interval'] == 0:
+            miou = run_valid(valid_step, valid_loader, params, logger, epoch,
+                             saver, device, valid_gen)
+            saver.log_metrics({'epoch': epoch, 'phase': 'valid',
+                               'miou': miou})
+            statistics['mIoU'][epoch] = round(miou * 100, 2)
+        if ((epoch + 1) % params['save_model_interval'] == 0
+                or epoch + 1 == params['epoch']):
+            logger.info('Save model in %s',
+                        saver.save_checkpoint(epoch, model))
+    _print_statistics(statistics)
+    return statistics
+
+
+def run_valid(valid_step, loader, params, logger, epoch: int,
+              saver: Optional[RunManager], device: torch.device,
+              generator: torch.Generator) -> float:
+    """One valid pass: losses, the submit JSON, the mean IoU it returns."""
+    pred_dict = _new_pred_dict(params)
+    t0 = time.time()
+    host_batches, outs = [], []
+    for batch in loader:
+        host_batches.append(batch)
+        outs.append(valid_step(to_device(batch, device, TRAIN_KEYS),
+                               generator))
+    fetched = _fetch(outs)
+    for batch, f in zip(host_batches, fetched):
+        _collect_predictions(pred_dict, batch, f['pred_time'], f['score'])
+    if saver is not None:
+        saver.save_submits(pred_dict, epoch, 'val_data')
+    miou = _avg(fetched, 'miou')
+    logger.info('epoch [%03d]: elapsed time:%0.4fs, avg loss: %03.3f, '
+                'miou: %03.3f avg loss_g: %03.3f, avg loss_m1: %03.3f, '
+                'avg loss_m2: %03.3f', epoch, time.time() - t0,
+                _avg(fetched, 'loss'), miou, _avg(fetched, 'loss_g'),
+                _avg(fetched, 'loss_intra'), _avg(fetched, 'loss_inter'))
+    return miou
+
+
+def _print_statistics(statistics) -> None:
+    for title in ('loss', 'mIoU'):
+        print(title, ':')
+        print('\t'.join(str(k) for k in statistics[title].keys()))
+        print('\t'.join(str(v) for v in statistics[title].values()))
+        if title == 'mIoU' and statistics[title]:
+            keys = list(statistics[title].keys())
+            vals = list(statistics[title].values())
+            print('Max mIoU:', max(vals), '\tEpoch',
+                  keys[vals.index(max(vals))])
+
+
 def main_test(params: Dict[str, Any]) -> str:
     """Evaluate GMD on ``test_data``: write the submit JSON (and its
     ``.metrics.json``), print the retrieval table, return the submit path."""
@@ -179,9 +342,7 @@ def main_test(params: Dict[str, Any]) -> str:
     saver = RunManager(params)
     lg = str(params['vfeat_fn']).lower() == 'lg'
 
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(params.get('seed', 123))
-        model = build_model(params, 'gmd', device='cpu')
+    model = _seeded_model(params, torch.device('cpu'))
     pt.mark('setup')
     test_set = make_dataset(params, 'test_data', 'test_featpath', 'test')
     test_loader = BatchLoader(test_set, params['batch_size'][0],
@@ -200,7 +361,7 @@ def main_test(params: Dict[str, Any]) -> str:
     for batch in test_loader:
         host_batches.append(batch)
         outs.append(test_step(to_device(batch, device)))
-    fetched = [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]
+    fetched = _fetch(outs)
     pt.mark('eval_loop')
     losses = [float(f['loss']) for f in fetched]
     mious = [float(f['miou']) for f in fetched]

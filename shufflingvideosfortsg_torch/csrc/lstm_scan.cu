@@ -1,14 +1,21 @@
-// K1: the inference BiLSTM recurrence, both directions in one launch.
+// K1 and K3: the BiLSTM recurrence, both directions in one launch.
 //
-// Replaces the Pallas TPU kernel `lstm_scan_pallas_flat`
+// K1 replaces the Pallas TPU kernel `lstm_scan_pallas_flat`
 // (shufflingvideosfortsg_tpu/ops/pallas/lstm_scan.py:303, body
-// `_lstm_kernel_flat` at :159), with the same contract:
+// `_lstm_kernel_flat` at :159); K3 replaces the train forward
+// `lstm_scan_pallas_train_flat` (:970, body `_lstm_kernel_train_flat` at
+// :663), which is K1 plus a cell-state residual for the backward kernel.
+// One kernel serves both: K3 passes a `c_seq` pointer, K1 passes null.
+// The contract:
 //   xw   [T, B, 8H] f32  row t = [fwd projection(t) | bwd projection(t)];
 //                        the backward half is NOT time-reversed, the kernel
 //                        reads it backwards (backward step k uses row T-1-k)
 //   w_hh [2, H, 4H] f32  per direction, gate columns in order i, f, g, o
 //   out  [T, B, 2H] f32  row t = [h_fwd(t) | h_bwd(t)], natural time order
 //   h_T, c_T [2, B, H]   final states, zero initial state
+//   c_seq [T, 2, B, H] f32 (K3 only) indexed by STEP s, not by time:
+//                        c_seq[s] = [c_fwd(t=s) | c_bwd(step s, time T-1-s)],
+//                        the order in which K4 (csrc/lstm_bwd.cu) walks it
 //
 // What bounds it on an H100. Per layer the recurrence does 2*T*2*B*H*4H
 // multiply-adds (4.3 GFLOP at T=128, B=32, H=256: 64 us at the 67 TFLOP/s
@@ -31,44 +38,27 @@
 // is cooperative, so it fails instead of deadlocking when the blocks cannot
 // all be resident. One thread owns one (batch row, unit) pair and computes
 // its four gates as four length-H dot products from shared memory, reading
-// h and W as float4.
+// h and W as float4. K3 adds one store of c per (step, row, unit): T*2*B*H
+// floats (16.8 MB at T=128, B=64, H=256), which no step waits for.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
+
+using svtsg::grid_barrier;
+using svtsg::sigmoid;
 
 constexpr int kUnits = 8;      // J: hidden units per block
 constexpr int kThreads = 256;  // threads per block
 
-__device__ __forceinline__ float sigmoid(float x) {
-    return 1.0f / (1.0f + expf(-x));
-}
-
-// Grid-wide barrier over a monotone arrival counter: the n-th barrier
-// returns once the counter reaches n * gridDim.x. Every thread fences its
-// own writes first, so the h a block wrote is visible to every block that
-// passes the barrier.
-__device__ __forceinline__ void grid_barrier(unsigned int* counter,
-                                             unsigned int target) {
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        atomicAdd(counter, 1u);
-        volatile unsigned int* seen = counter;
-        while (*seen < target) {
-            __nanosleep(32);
-        }
-        __threadfence();
-    }
-    __syncthreads();
-}
-
 __global__ void __launch_bounds__(kThreads)
 lstm_flat_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh,
                  float* __restrict__ out, float* __restrict__ h_T,
-                 float* __restrict__ c_T, float* h_buf,
-                 unsigned int* barrier, int T, int B, int H) {
+                 float* __restrict__ c_T, float* __restrict__ c_seq,
+                 float* h_buf, unsigned int* barrier, int T, int B, int H) {
     extern __shared__ float4 smem4[];
     const int slices = H / kUnits;
     const int d = blockIdx.x / slices;                 // direction
@@ -130,6 +120,8 @@ lstm_flat_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh,
             const float c = gf * c_s[p] + gi * gg;
             const float h = go * tanhf(c);
             c_s[p] = c;
+            if (c_seq != nullptr)
+                c_seq[(((size_t)s * 2 + d) * B + b) * H + unit] = c;
             h_next[b * H + unit] = h;
             out[((size_t)t * B + b) * 2 * H + d * H + unit] = h;
             if (s == T - 1) {
@@ -150,11 +142,12 @@ int svtsg_lstm_smem_bytes(int B, int H) {
     return H * kUnits * 16 + B * (H + 4) * 4 + B * kUnits * 4;
 }
 
-// Launch the recurrence on `stream`. h_buf is [2, 2, B, H] f32 scratch and
-// barrier one 32-bit word of scratch; both come from the caller. Returns
-// the CUDA error code (0 on success).
+// Launch the recurrence on `stream`. c_seq is the [T, 2, B, H] residual
+// (K3) or null (K1). h_buf is [2, 2, B, H] f32 scratch and barrier one
+// 32-bit word of scratch; both come from the caller. Returns the CUDA error
+// code (0 on success).
 int svtsg_lstm_recurrence(const float* xw, const float* w_hh, float* out,
-                          float* h_T, float* c_T, float* h_buf,
+                          float* h_T, float* c_T, float* c_seq, float* h_buf,
                           unsigned int* barrier, int T, int B, int H,
                           int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
@@ -168,7 +161,7 @@ int svtsg_lstm_recurrence(const float* xw, const float* w_hh, float* out,
     err = cudaMemsetAsync(barrier, 0, sizeof(unsigned int), st);
     if (err != cudaSuccess) return err;
     void* args[] = {(void*)&xw, (void*)&w_hh, (void*)&out, (void*)&h_T,
-                    (void*)&c_T, (void*)&h_buf, (void*)&barrier,
+                    (void*)&c_T, (void*)&c_seq, (void*)&h_buf, (void*)&barrier,
                     (void*)&T, (void*)&B, (void*)&H};
     const dim3 grid(2 * H / kUnits), block(kThreads);
     err = cudaLaunchCooperativeKernel((const void*)lstm_flat_kernel, grid,

@@ -49,5 +49,8 @@ def build_model(params: Dict[str, Any], kind: str = 'gmd',
     model = GMD(m_temp=params['m_temp'],
                 m_pred_hidden=params['m_pred_hidden'],
                 m_pred_activ=params['m_pred_activ'],
+                disc_dropout=float(params.get('disc_dropout', 0.5)),
+                pseudo_ground=float(
+                    params.get('loss_pseudo_ground_lambda', 0) or 0) > 0,
                 **model_config_from_params(params))
     return model.to(device)

@@ -1,13 +1,14 @@
-"""Model components on the GMD evaluation path.
+"""Model components of GMD.
 
 Counterpart of ``shufflingvideosfortsg_tpu/models/components.py``
-(``:35-351`` and ``:561-630``): only the classes GMD evaluation runs, with
+(``:35-351`` and ``:561-630``): only the classes GMD runs, with
 submodules named so that ``state_dict()`` keys equal the reference torch
 keys (``rnn_cell.lstm.*``, ``attention.{W_s,W_a,w}``, ``predict.predict.{0,2}``,
 ``foreback_context.0`` ...). ``TDense`` is ``nn.Linear`` with torch's
 default init; LayerNorm is ``nn.LayerNorm`` (eps 1e-5). The other span
 predictors, video encoders, CSMM temporal models and CMI modes arrive with
-the variants slice and raise here.
+the variants slice and raise here. Dropout masks come from the
+``generator`` a forward is given (``ops/rnn.py::dropout``).
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ import torch
 from torch import nn
 
 from ..ops.losses import mask_logits
-from ..ops.rnn import BiLSTM
-from ..ops.scdm_fused import scdm_attention_fused
+from ..ops.rnn import BiLSTM, dropout
+from ..ops.scdm_fused import (scdm_attention_fused,
+                              scdm_attention_fused_trainable)
 
 
 def _rnn_cell(input_size: int, hidden: int, layers: int,
@@ -40,15 +42,18 @@ class SentenceRNNEncoder(nn.Module):
         self.word_embed = nn.Linear(word_dim, word_dim)
         self.rnn_cell = _rnn_cell(word_dim, hidden_dim, n_layers, dropout)
 
-    def forward(self, query_feat: torch.Tensor
+    def forward(self, query_feat: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        word_encoding, hn, _ = self.rnn_cell['lstm'](self.word_embed(query_feat))
+        word_encoding, hn, _ = self.rnn_cell['lstm'](self.word_embed(query_feat),
+                                                     generator)
         return word_encoding, torch.cat([hn[-2], hn[-1]], dim=-1)
 
 
 class SCDMAttention(nn.Module):
     """Additive word attention giving per-frame text context [B, T, Ds],
-    through the K2 kernel (``ops/scdm_fused.py``)."""
+    through the K2 kernel (``ops/scdm_fused.py``), or K5 (K2 with a
+    backward) when gradients are on."""
 
     def __init__(self, video_dim: int, sent_dim: int, hidden_dim: int):
         super().__init__()
@@ -59,9 +64,11 @@ class SCDMAttention(nn.Module):
     def forward(self, video_feat: torch.Tensor, sent_feat: torch.Tensor
                 ) -> torch.Tensor:
         sent_feat = sent_feat.contiguous()
-        return scdm_attention_fused(self.W_a(video_feat).contiguous(),
-                                    self.W_s(sent_feat).contiguous(),
-                                    self.w.weight[0], sent_feat)
+        fn = (scdm_attention_fused_trainable if torch.is_grad_enabled()
+              else scdm_attention_fused)
+        return fn(self.W_a(video_feat).contiguous(),
+                  self.W_s(sent_feat).contiguous(), self.w.weight[0],
+                  sent_feat)
 
 
 _GATES = {'sigmoid': torch.sigmoid, 'relu': torch.relu, 'tanh': torch.tanh}
@@ -80,8 +87,9 @@ class RNNRecalibrationLayer(nn.Module):
         self.attention = SCDMAttention(2 * hidden_dim, sent_dim, 2 * hidden_dim)
         self.sent_linear = nn.Linear(sent_dim, 2 * hidden_dim)
 
-    def run_rnn(self, video_feat: torch.Tensor) -> torch.Tensor:
-        return self.rnn_cell['lstm'](video_feat)[0]
+    def run_rnn(self, video_feat: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.rnn_cell['lstm'](video_feat, generator)[0]
 
     def apply_gate(self, rnn_output: torch.Tensor,
                    word_feat: torch.Tensor) -> torch.Tensor:
@@ -91,9 +99,9 @@ class RNNRecalibrationLayer(nn.Module):
             channel_attn = gate(channel_attn)
         return rnn_output * channel_attn
 
-    def forward(self, video_feat: torch.Tensor,
-                word_feat: torch.Tensor) -> torch.Tensor:
-        return self.apply_gate(self.run_rnn(video_feat), word_feat)
+    def forward(self, video_feat: torch.Tensor, word_feat: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.apply_gate(self.run_rnn(video_feat, generator), word_feat)
 
 
 class QueryAwareEncoder(nn.Module):
@@ -111,11 +119,11 @@ class QueryAwareEncoder(nn.Module):
             for i in range(nblocks))
         self.norm = nn.LayerNorm(2 * hidden_dim, eps=1e-5)
 
-    def forward(self, video_feat: torch.Tensor,
-                word_feat: torch.Tensor) -> torch.Tensor:
+    def forward(self, video_feat: torch.Tensor, word_feat: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         residual = video_feat
         for block in self.blocks:
-            residual = block(residual, word_feat)
+            residual = block(residual, word_feat, generator)
         return self.norm(residual)
 
 
@@ -212,13 +220,35 @@ class VideoTextSemanticMatch(nn.Module):
 
 
 class MomentPoolingTOD(nn.Module):
-    """Temporal-order discriminator: its parameters only, so reference
-    checkpoints load strictly. Evaluation never calls it; its forward
-    arrives with the training slice."""
+    """Temporal-order discriminator (TemporalOrderDiscriminator.py:15-45):
+    masked mean-pools of the target, fore and back regions, one
+    ``foreback_context`` layer shared by fore and back, dropout, then a
+    2-way original-vs-pseudo classifier. ``dropout`` is the reference's
+    hard-coded 0.5 unless a config's ``disc_dropout`` says otherwise."""
 
-    def __init__(self, visual_dim: int):
+    def __init__(self, visual_dim: int, dropout: float = 0.5):
         super().__init__()
+        self.dropout = dropout
         self.foreback_context = nn.Sequential(
             nn.Linear(2 * visual_dim, visual_dim))
         self.fc_classifier_domain_video = nn.Sequential(
             nn.Linear(3 * visual_dim, 2))
+
+    @staticmethod
+    def average_mask(feat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        m = mask.to(feat.dtype)
+        return ((feat * m[..., None]).sum(dim=1)
+                / (m.sum(dim=1, keepdim=True) + 1e-6))
+
+    def forward(self, feat: torch.Tensor, target_mask: torch.Tensor,
+                fore_mask: torch.Tensor, back_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        target = self.average_mask(feat, target_mask)
+        fore = self.average_mask(feat, fore_mask)
+        back = self.average_mask(feat, back_mask)
+        foreback = self.foreback_context[0]
+        fore_feat = torch.relu(foreback(torch.cat([fore, target], dim=-1)))
+        back_feat = torch.relu(foreback(torch.cat([target, back], dim=-1)))
+        concat = torch.cat([target, fore_feat, back_feat], dim=-1)
+        concat = dropout(concat, self.dropout, self.training, generator)
+        return self.fc_classifier_domain_video[0](concat)

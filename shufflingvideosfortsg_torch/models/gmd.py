@@ -1,7 +1,10 @@
-"""GMD: the shuffling-framework grounding model, evaluation path.
+"""GMD: the shuffling-framework grounding model.
 
 Counterpart of ``shufflingvideosfortsg_tpu/models/gmd.py`` (``:25-83``
-construction, ``:179-195`` ``eval_forward``). Submodules carry the
+construction, ``:85-177`` the pair forward, ``:179-195`` ``eval_forward``).
+The raw and pseudo videos run through the shared video encoder and CSMM
+as one [2B] batch. Dropout follows ``self.training``, with masks from the
+generator a forward is given. Submodules carry the
 reference torch names, so ``state_dict()`` keys equal the keys that
 ``utils/torch_interop.convert_to_reference_state_dict`` writes and a
 reference ``.ckp`` loads strictly.
@@ -28,7 +31,8 @@ class GMD(nn.Module):
                  predictor_name: str = 'mlp', mlp_hidden_dim: int = 256,
                  video_if_mask: bool = False,
                  m_temp: str = 'none', m_pred_hidden: int = 1024,
-                 m_pred_activ: str = 'relu', dropout: float = 0.5):
+                 m_pred_activ: str = 'relu', dropout: float = 0.5,
+                 disc_dropout: float = 0.5, pseudo_ground: bool = False):
         super().__init__()
         if video_encoder_name.lower() not in ('query_aware_encoder', 'qae',
                                               'qave'):
@@ -36,6 +40,9 @@ class GMD(nn.Module):
                                       'is not ported yet (only QAVE)')
         self.cross_name = cross_name
         self.video_if_mask = video_if_mask
+        # beyond the reference: also ground the pseudo stream through the
+        # shared span predictor, for the loss_pseudo_ground_lambda term
+        self.pseudo_ground = pseudo_ground
         sent_dim = 2 * sent_hidden
         visual_dim = 2 * video_hidden
         self.sentence_encoder = SentenceRNNEncoder(word_dim, sent_hidden,
@@ -48,7 +55,85 @@ class GMD(nn.Module):
             mlp_hidden_dim)
         self.csmm = VideoTextSemanticMatch(visual_dim, sent_dim, m_temp,
                                            m_pred_hidden, m_pred_activ)
-        self.tod = MomentPoolingTOD(visual_dim)
+        self.tod = MomentPoolingTOD(visual_dim, disc_dropout)
+
+    def forward(self, query_feat: torch.Tensor, query_mask: torch.Tensor,
+                ori_video_feat: torch.Tensor, ori_video_mask: torch.Tensor,
+                pseudo_video_feat: torch.Tensor,
+                pseudo_video_mask: torch.Tensor,
+                ori_temporal_mask: torch.Tensor, ori_fore_mask: torch.Tensor,
+                ori_back_mask: torch.Tensor,
+                pseudo_temporal_mask: torch.Tensor,
+                pseudo_fore_mask: torch.Tensor,
+                pseudo_back_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """The training pair forward (SpanGroundMatchDisc.py:60-100).
+        ``query_mask`` is accepted and unused, as in the reference."""
+        word_feat, sent_embed = self.encode_query(query_feat, generator)
+        both_video = torch.cat([ori_video_feat, pseudo_video_feat], dim=0)
+        both_words = torch.cat([word_feat, word_feat], dim=0)
+        both_frame_feat = self.video_encoder(both_video, both_words, generator)
+        return self.forward_from_frames(
+            word_feat, sent_embed, both_frame_feat, ori_video_mask,
+            pseudo_video_mask, ori_temporal_mask, ori_fore_mask,
+            ori_back_mask, pseudo_temporal_mask, pseudo_fore_mask,
+            pseudo_back_mask, generator)
+
+    def encode_query(self, query_feat: torch.Tensor,
+                     generator: Optional[torch.Generator] = None):
+        """The sentence-encoder half of the pair forward: (word features
+        [B, N, 2Hs], sentence embedding [B, 2Hs])."""
+        return self.sentence_encoder(query_feat, generator)
+
+    def forward_from_frames(self, word_feat: torch.Tensor,
+                            sent_embed: torch.Tensor,
+                            both_frame_feat: torch.Tensor,
+                            ori_video_mask: torch.Tensor,
+                            pseudo_video_mask: torch.Tensor,
+                            ori_temporal_mask: torch.Tensor,
+                            ori_fore_mask: torch.Tensor,
+                            ori_back_mask: torch.Tensor,
+                            pseudo_temporal_mask: torch.Tensor,
+                            pseudo_fore_mask: torch.Tensor,
+                            pseudo_back_mask: torch.Tensor,
+                            generator: Optional[torch.Generator] = None
+                            ) -> Dict[str, torch.Tensor]:
+        """Everything after the shared video encoder: CSMM on both
+        streams, match-gated span prediction on the raw one, the TOD on
+        both. ``both_frame_feat`` is the [2B, T, 2H] raw‖pseudo encoder
+        output."""
+        B = word_feat.shape[0]
+        ori_frame_feat = both_frame_feat[:B]
+        pseudo_frame_feat = both_frame_feat[B:]
+        ori_cross_feat = cmi_apply(self.cross_name, ori_frame_feat,
+                                   word_feat, sent_embed)
+        both_match_prob, _ = self.csmm(
+            both_frame_feat, torch.cat([sent_embed, sent_embed], dim=0),
+            torch.cat([ori_video_mask, pseudo_video_mask], dim=0))
+        ori_match_prob = both_match_prob[:B]
+        pseudo_match_prob = both_match_prob[B:]
+        start_prob, end_prob = self.span_predictor(
+            ori_match_prob[:, :, None] * ori_cross_feat,
+            v_mask=ori_video_mask if self.video_if_mask else None)
+        both_disc = self.tod(
+            both_frame_feat,
+            torch.cat([ori_temporal_mask, pseudo_temporal_mask], dim=0),
+            torch.cat([ori_fore_mask, pseudo_fore_mask], dim=0),
+            torch.cat([ori_back_mask, pseudo_back_mask], dim=0), generator)
+        out = {'start_prob': start_prob, 'end_prob': end_prob,
+               'ori_match_prob': ori_match_prob,
+               'pseudo_match_prob': pseudo_match_prob,
+               'ori_disc_prob': both_disc[:B],
+               'pseudo_disc_prob': both_disc[B:]}
+        if self.pseudo_ground:
+            pseudo_cross_feat = cmi_apply(self.cross_name, pseudo_frame_feat,
+                                          word_feat, sent_embed)
+            out['pseudo_start_prob'], out['pseudo_end_prob'] = \
+                self.span_predictor(
+                    pseudo_match_prob[:, :, None] * pseudo_cross_feat,
+                    v_mask=pseudo_video_mask if self.video_if_mask else None)
+        return out
 
     def eval_forward(self, video_feat: torch.Tensor, query_feat: torch.Tensor,
                      video_mask: Optional[torch.Tensor] = None,

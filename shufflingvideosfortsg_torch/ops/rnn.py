@@ -7,21 +7,35 @@ both biases [4H], gate order i, f, g, o), so reference state dicts load
 strictly; the module does not use ``nn.LSTM``. Per layer, the input
 projection of both directions is one [T*B, D] @ [D, 8H] product into the
 flat [T, B, 8H] layout, and the recurrence is
-:func:`~shufflingvideosfortsg_torch.ops.lstm_scan.lstm_recurrence`.
+:func:`~shufflingvideosfortsg_torch.ops.lstm_scan.lstm_recurrence` (K1
+without gradients, K3 and K4 with them).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .lstm_scan import lstm_recurrence
 
 _DIRECTIONS = ('', '_reverse')
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout``: keep with probability 1-p,
+    scale kept values by 1/(1-p)) with the mask drawn from ``generator``,
+    so a run's masks follow its own seed and not the global RNG. The
+    generator lives on ``x``'s device; None draws from the default one."""
+    if not training or p <= 0.0:
+        return x
+    keep = 1.0 - p
+    u = torch.rand(x.shape, generator=generator, device=x.device,
+                   dtype=x.dtype)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class BiLSTM(nn.Module):
@@ -30,7 +44,8 @@ class BiLSTM(nn.Module):
     Returns (outputs [B, T, 2H], hn [2L, B, H], cn [2L, B, H]) with hn/cn
     layer-major and forward before backward, so ``hn[-2], hn[-1]`` are the
     last layer's final forward and backward states. Dropout applies to
-    each layer's output except the last, in training only.
+    each layer's output except the last, in training only, with masks
+    from the ``generator`` given to :meth:`forward`.
     """
 
     def __init__(self, input_size: int, hidden_size: int,
@@ -68,7 +83,8 @@ class BiLSTM(nn.Module):
         w_hh = torch.stack([w.t() for w in p['weight_hh']]).contiguous()  # [2, H, 4H]
         return w_ih, b, w_hh
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         B, T, _ = x.shape
         H = self.hidden_size
@@ -84,7 +100,8 @@ class BiLSTM(nn.Module):
             hn += [h_T[0], h_T[1]]
             cn += [c_T[0], c_T[1]]
             layer_out = out.transpose(0, 1)
-            if k + 1 < self.num_layers and self.dropout > 0.0:
-                layer_out = F.dropout(layer_out, self.dropout, self.training)
+            if k + 1 < self.num_layers:
+                layer_out = dropout(layer_out, self.dropout, self.training,
+                                    generator)
             inputs = layer_out
         return inputs, torch.stack(hn), torch.stack(cn)

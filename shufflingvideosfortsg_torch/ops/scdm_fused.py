@@ -1,11 +1,11 @@
-"""K2: fused SCDM additive word attention.
+"""K2 and K5: fused SCDM additive word attention, and its trainable form.
 
 Counterpart of ``shufflingvideosfortsg_tpu/ops/pallas/scdm_fused.py``
-``scdm_attention_fused`` and of its plain formulation
-``ops/attention.py::scdm_attention``. The CUDA kernel is ``csrc/scdm.cu``;
-:func:`scdm_attention_plain` is the broadcast-tanh version in PyTorch,
-which the wrapper takes for CPU tensors and the card's checks hold the
-kernel against.
+``scdm_attention_fused`` (K2) and ``scdm_attention_fused_trainable`` (K5),
+and of their plain formulation ``ops/attention.py::scdm_attention``. The
+CUDA kernel is ``csrc/scdm.cu``; :func:`scdm_attention_plain` is the
+broadcast-tanh version in PyTorch, which the wrapper takes for CPU tensors
+and the card's checks hold the kernel against.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def scdm_attention_fused(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     ``csrc/scdm.cu`` or raise: it takes contiguous f32 inputs on one card,
     N <= 32, Dh and Ds multiples of 32 up to 1024, and an N, Dh, Ds whose
     staged rows fit one block's shared memory. It has no backward: call it
-    with gradients off.
+    with gradients off, or call :func:`scdm_attention_fused_trainable`.
     """
     B, T, N, Dh, Ds = _check_inputs(video_proj, sent_proj, w, sent_feat)
     args = (video_proj, sent_proj, w, sent_feat)
@@ -77,8 +77,9 @@ def scdm_attention_fused(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     if not all(a.is_contiguous() for a in args):
         raise ValueError('scdm_attention_fused needs contiguous inputs')
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        raise RuntimeError('scdm_attention_fused has no backward kernel yet; '
-                           'call it under torch.no_grad()')
+        raise RuntimeError('scdm_attention_fused has no backward; call it '
+                           'under torch.no_grad() or call '
+                           'scdm_attention_fused_trainable')
     lib = _kernels.library()
     max_n, max_width = lib.svtsg_scdm_max_words(), lib.svtsg_scdm_max_width()
     if not 1 <= N <= max_n:
@@ -104,3 +105,39 @@ def scdm_attention_fused(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
 
 
 scdm_attention_fused.launches = 0
+
+
+class _ScdmAttentionTrainable(torch.autograd.Function):
+    """K5 (``scdm_fused.py:102-122``): the K2 forward, and as backward the
+    vector-Jacobian product of the plain formulation recomputed from the
+    saved inputs, as ``_scdm_bwd`` takes ``jax.vjp`` of
+    ``ops/attention.py::scdm_attention``. The JAX backward is XLA, not a
+    Pallas kernel, so PyTorch operations are its faithful port; at B=64,
+    T=128, N=15, Dh=512 they materialise the 252 MB tanh activation."""
+
+    @staticmethod
+    def forward(ctx, video_proj, sent_proj, w, sent_feat):
+        ctx.save_for_backward(video_proj, sent_proj, w, sent_feat)
+        return scdm_attention_fused(video_proj, sent_proj, w, sent_feat)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = scdm_attention_plain(*inputs)
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        if inputs[0].is_cuda:
+            scdm_attention_fused_trainable.launches += 1
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def scdm_attention_fused_trainable(video_proj: Tensor, sent_proj: Tensor,
+                                   w: Tensor, sent_feat: Tensor) -> Tensor:
+    """Differentiable :func:`scdm_attention_fused`: same contract, with a
+    backward. ``launches`` counts its backward passes on a card."""
+    return _ScdmAttentionTrainable.apply(video_proj, sent_proj, w, sent_feat)
+
+
+scdm_attention_fused_trainable.launches = 0

@@ -45,6 +45,38 @@ def _batch(params, B: int, device, seed: int = 0):
     return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
 
 
+def profile_window(step, n: int):
+    """Run ``step()`` n times under ``torch.profiler``: (device time in us
+    by kernel name, the window's wall ms, the device's busy ms)."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}  # device-side events only: the ops' totals would count twice
+    for evt in prof.key_averages():
+        # a user annotation (Optimizer.step#Adam.step) spans kernels
+        # already counted
+        if getattr(evt, 'is_user_annotation', False):
+            continue
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + evt.self_device_time_total
+    return kernels, wall_ms, sum(kernels.values()) / 1e3
+
+
+def card_line() -> str:
+    return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+
+
+def print_kernels(kernels, n: int, busy_ms: float, top: int = 15) -> None:
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
+        print(f'  {us / 1e3 / n:9.4f} ms/step '
+              f'{100 * us / 1e3 / busy_ms:5.1f}%  {name[:100]}')
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--batch', type=int, default=32)
@@ -74,29 +106,15 @@ def main() -> None:
     ms = start.elapsed_time(end) / args.iters
 
     n_prof = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            step(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}  # device-side events only: the ops' totals would count twice
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + evt.self_device_time_total
-    busy_ms = sum(kernels.values()) / 1e3
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
+    kernels, wall_ms, busy_ms = profile_window(lambda: step(batch), n_prof)
+    smi = card_line()
     print(f'card: {smi}')
     print(f'step: {ms:.4f} ms per batch of {args.batch} '
           f'({args.batch / ms * 1e3:.1f} sentences/s, CUDA events, '
           f'{args.iters} iterations)')
     print(f'profile window: {n_prof} steps, wall {wall_ms:.3f} ms, device '
           f'busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)')
-    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
-        print(f'  {us / 1e3 / n_prof:9.4f} ms/step '
-              f'{100 * us / 1e3 / busy_ms:5.1f}%  {name[:100]}')
+    print_kernels(kernels, n_prof, busy_ms)
     print(json.dumps({
         'card': smi, 'batch': args.batch, 'step_ms': ms,
         'window_wall_ms': wall_ms, 'window_device_busy_ms': busy_ms,

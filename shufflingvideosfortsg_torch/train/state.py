@@ -1,0 +1,126 @@
+"""Optimizer, learning-rate schedule and train state.
+
+Counterpart of ``shufflingvideosfortsg_tpu/train/state.py:40-115``, whose
+optax chain mirrors the reference's torch optimizers (grounding/
+train.py:367-387); here they are those torch optimizers:
+
+- adam:  ``torch.optim.Adam(eps=1e-6, weight_decay=wd)``, the decay added
+  to the gradient before the moments;
+- adamw: ``torch.optim.AdamW(eps=1e-8)``, decoupled decay;
+- sgd:   ``torch.optim.SGD(momentum=params['momentum'])``, L2 decay.
+
+With ``group_weight`` the decay skips Linear biases and LayerNorm
+parameters (``group_weight_mask``). Gradients are clipped by global norm as
+``optax.clip_by_global_norm`` does it, before the optimizer. The learning
+rate is set before every update from :func:`lr_schedule_fn`, epoch-granular
+(``epoch = step // steps_per_epoch``): 'ms' is MultiStepLR, 'l' the
+reference's LambdaLR whose factor makes the rate lr * (lr - epoch * 1e-6).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List
+
+import torch
+from torch import nn
+
+
+def lr_schedule_fn(params: Dict[str, Any], steps_per_epoch: int
+                   ) -> Callable[[int], float]:
+    """step (updates done so far) -> learning rate of the next update."""
+    base_lr = float(params['lr'])
+    schd = str(params.get('lr_schd', 'ms')).lower()
+    if schd in ('multistep', 'ms'):
+        milestones = sorted(params.get('lr_step', [15]))
+        gamma = float(params.get('lr_decay_rate', 0.1))
+
+        def fn(step: int) -> float:
+            epoch = step // steps_per_epoch
+            return base_lr * gamma ** sum(epoch >= m for m in milestones)
+        return fn
+    if schd in ('lambda', 'l'):
+        def fn(step: int) -> float:
+            return base_lr * (base_lr - (step // steps_per_epoch) * 1e-6)
+        return fn
+    raise ValueError(f'unknown lr_schd: {schd}')
+
+
+def decay_groups(model: nn.Module, weight_decay: float, grouped: bool
+                 ) -> List[Dict[str, Any]]:
+    """Parameter groups of the reference's ``group_weight``
+    (helper_function.py:43-70): Linear weights decay, Linear biases and
+    LayerNorm parameters do not, everything else (the recurrent weights and
+    biases, the SCDM ``w``) does. Without ``grouped`` everything decays."""
+    if not grouped:
+        return [{'params': list(model.parameters()),
+                 'weight_decay': weight_decay}]
+    decay, no_decay = [], []
+    for module in model.modules():
+        own = list(module.parameters(recurse=False))
+        if isinstance(module, nn.Linear):
+            decay.append(module.weight)
+            no_decay += [p for p in own if p is not module.weight]
+        elif isinstance(module, nn.LayerNorm):
+            no_decay += own
+        else:
+            decay += own
+    return [{'params': decay, 'weight_decay': weight_decay},
+            {'params': no_decay, 'weight_decay': 0.0}]
+
+
+def make_optimizer(model: nn.Module, params: Dict[str, Any]
+                   ) -> torch.optim.Optimizer:
+    """The reference's optimizer over ``model``'s parameters. Its learning
+    rate is set per update by :class:`TrainState`."""
+    wd = float(params.get('weight_decay', 0.0))
+    groups = decay_groups(model, wd, bool(params.get('group_weight', False)))
+    lr = float(params['lr'])
+    name = str(params.get('optim', 'adam')).lower()
+    if name == 'adam':
+        return torch.optim.Adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-6)
+    if name == 'adamw':
+        return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if name == 'sgd':
+        return torch.optim.SGD(groups, lr=lr,
+                               momentum=float(params.get('momentum', 0.8)))
+    raise ValueError(f'unknown optimizer: {name}')
+
+
+@torch.no_grad()
+def clip_by_global_norm(parameters, max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm``: gradients keep their values while
+    their global norm is below ``max_norm`` and are scaled by max_norm/norm
+    otherwise (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm,
+    which is another result). Returns the norm before clipping."""
+    grads = [p.grad for p in parameters if p.grad is not None]
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
+
+
+class TrainState:
+    """The model, its optimizer, the schedule and the update count
+    (``TrainState`` of the JAX package; here the parameters live in the
+    model and change in place)."""
+
+    def __init__(self, model: nn.Module, params: Dict[str, Any],
+                 steps_per_epoch: int):
+        self.model = model
+        self.step = 0
+        self.optimizer = make_optimizer(model, params)
+        self.schedule = lr_schedule_fn(params, steps_per_epoch)
+        self.clip = (float(params['grad_clip_max'])
+                     if params.get('grad_clip') else None)
+
+    def apply_gradients(self) -> None:
+        """One update from the gradients now in the parameters' ``.grad``."""
+        if self.clip is not None:
+            clip_by_global_norm(self.model.parameters(), self.clip)
+        lr = self.schedule(self.step)
+        for group in self.optimizer.param_groups:
+            group['lr'] = lr
+        self.optimizer.step()
+        self.step += 1

@@ -1,52 +1,193 @@
-"""The GMD evaluation step.
+"""The GMD train, valid and test steps.
 
-Counterpart of ``make_gmd_test_step`` in
-``shufflingvideosfortsg_tpu/train/steps.py:301-351`` (the ungrouped,
-top-1 form): ``eval_forward``, the grounding NLL, the span decode and
-per-sample IoU. The train steps arrive with the training slice.
+Counterpart of ``shufflingvideosfortsg_tpu/train/steps.py``:
+``make_gmd_train_step`` (``:118-224``), ``make_gmd_valid_step``
+(``:227-269``) and ``make_gmd_test_step`` (``:301-351``, the ungrouped,
+top-1 form). The train loss is the reference's (grounding/
+train.py:140-165): grounding NLL + m1 * (intra-video BCE on raw and pseudo)
++ m2 * (inter-video span KL) + disc * (order-discrimination CE), plus
+``loss_pseudo_ground_lambda`` * the grounding NLL of the pseudo stream
+when that is set. Pseudo videos are made on the device
+(``ops/augment_device.py``) unless ``on_device_aug`` is off, when the
+batch carries the loader's host-made pseudo stream.
+
+Random numbers come from the ``torch.Generator`` a step is given, in a
+fixed order: the pseudo videos' insertion offsets, then the dropout masks.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Sequence
 
 import numpy as np
 import torch
 
-from ..ops.losses import span_ground_nll
+from ..ops.augment_device import gt_translate_batch
+from ..ops.losses import (bce_loss, masked_softmax, matching_kl_divergence,
+                          span_ground_loss, span_ground_nll,
+                          temporal_order_discrimination_loss)
 from ..ops.span import iou_per_sample, span_decode
+from .state import TrainState
 
-# batch keys the step reads, moved to the device per batch
+# batch keys the test step reads, moved to the device per batch
 STEP_KEYS = ('video_feat', 'sent_feat', 'video_mask', 'sent_mask',
              'framestps', 'timestps', 'nfeats', 'duration')
+# the pseudo stream's keys, with a 'pseudo_' prefix in a host-made batch
+PSEUDO_KEYS = ('video_feat', 'framestps', 'video_mask', 'temporal_labels',
+               'fore_masks', 'back_masks')
+TRAIN_KEYS = STEP_KEYS + ('temporal_labels', 'fore_masks', 'back_masks')
+HOST_PAIR_KEYS = TRAIN_KEYS + tuple('pseudo_' + k for k in PSEUDO_KEYS)
+
+Batch = Dict[str, torch.Tensor]
 
 
-def to_device(batch: Dict[str, Any], device: torch.device
-              ) -> Dict[str, torch.Tensor]:
+def to_device(batch: Dict[str, Any], device: torch.device,
+              keys: Sequence[str] = STEP_KEYS) -> Batch:
     return {k: torch.from_numpy(np.asarray(batch[k])).to(device)
-            for k in STEP_KEYS}
+            for k in keys}
+
+
+def _stats(start_prob, end_prob, batch: Batch, lg_frame2sec: bool):
+    """(pred_time [B, 2] f32, score [B], mean IoU) of the decoded spans."""
+    pred, score = span_decode(start_prob, end_prob)
+    pred_f = pred.float()
+    if lg_frame2sec:
+        pred_f = pred_f / batch['nfeats'][:, None].float() \
+            * batch['duration'][:, None].float()
+    return pred_f, score, iou_per_sample(pred_f, batch['timestps']).mean()
+
+
+def _device_pseudo(batch: Batch, generator: torch.Generator) -> Batch:
+    """The pseudo stream made on the device from one uniform draw a row."""
+    video = batch['video_feat']
+    u = torch.rand(video.shape[0], generator=generator, device=video.device)
+    feat, framestps, masks = gt_translate_batch(u, video, batch['framestps'],
+                                                batch['nfeats'])
+    return {'video_feat': feat, 'framestps': framestps, **masks}
+
+
+def _pair_forward(model, batch: Batch, pseudo: Batch, generator):
+    return model(batch['sent_feat'], batch['sent_mask'],
+                 batch['video_feat'], batch['video_mask'],
+                 pseudo['video_feat'], pseudo['video_mask'],
+                 batch['temporal_labels'], batch['fore_masks'],
+                 batch['back_masks'], pseudo['temporal_labels'],
+                 pseudo['fore_masks'], pseudo['back_masks'],
+                 generator=generator)
+
+
+def _match_losses(out, batch: Batch, pseudo: Batch, m1: float, m2: float):
+    """(grounding NLL, m1 * intra BCE, m2 * inter KL), batch means."""
+    loss_g = span_ground_loss(out['start_prob'], out['end_prob'],
+                              batch['framestps'])
+    loss_intra = m1 * (
+        bce_loss(out['ori_match_prob'], batch['temporal_labels'],
+                 batch['video_mask'])
+        + bce_loss(out['pseudo_match_prob'], pseudo['temporal_labels'],
+                   pseudo['video_mask']))
+    ori_sm = masked_softmax(out['ori_match_prob'], batch['temporal_labels'])
+    pse_sm = masked_softmax(out['pseudo_match_prob'],
+                            pseudo['temporal_labels'])
+    loss_inter = m2 * matching_kl_divergence(
+        ori_sm, pse_sm, batch['framestps'], pseudo['framestps'])
+    return loss_g, loss_intra, loss_inter
+
+
+def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
+                        lg_frame2sec: bool = False
+                        ) -> Callable[[Batch, torch.Generator], Batch]:
+    """Returns step(batch, generator) -> metrics: one optimizer update of
+    ``state`` from one batch of raw videos (and, without
+    ``on_device_aug``, their host-made pseudo videos). The metrics are the
+    loss, its terms and the mean IoU of the raw stream's decoded spans,
+    as 0-d tensors on the batch's device. ``step.loss_fn(batch, pseudo,
+    generator) -> (loss, aux)`` is the loss alone."""
+    m1 = float(params['loss_m1_lambda'])
+    m2 = float(params['loss_m2_lambda'])
+    md = float(params['loss_disc_lambda'])
+    mpg = float(params.get('loss_pseudo_ground_lambda', 0) or 0)
+    on_device_aug = bool(params.get('on_device_aug', True))
+    if int(params.get('grad_accum_steps', 1) or 1) > 1:
+        raise NotImplementedError('grad_accum_steps > 1 is not ported yet')
+
+    def loss_fn(batch: Batch, pseudo: Batch, generator):
+        out = _pair_forward(model, batch, pseudo, generator)
+        loss_g, loss_intra, loss_inter = _match_losses(out, batch, pseudo,
+                                                       m1, m2)
+        loss_disc = temporal_order_discrimination_loss(
+            out['ori_disc_prob'], out['pseudo_disc_prob'])
+        loss = loss_g + loss_intra + loss_inter + md * loss_disc
+        if mpg > 0:
+            # beyond the reference: grounding NLL of the pseudo stream at
+            # its translated labels, through the shared span predictor
+            loss = loss + mpg * span_ground_loss(
+                out['pseudo_start_prob'], out['pseudo_end_prob'],
+                pseudo['framestps'])
+        aux = {'loss': loss, 'loss_g': loss_g, 'loss_intra': loss_intra,
+               'loss_inter': loss_inter, 'loss_d': loss_disc,
+               'start_prob': out['start_prob'], 'end_prob': out['end_prob']}
+        return loss, aux
+
+    def train_step(batch: Batch, generator: torch.Generator) -> Batch:
+        model.train()
+        if on_device_aug:
+            pseudo = _device_pseudo(batch, generator)
+        else:
+            pseudo = {k: batch['pseudo_' + k] for k in PSEUDO_KEYS}
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, aux = loss_fn(batch, pseudo, generator)
+        loss.backward()
+        state.apply_gradients()
+        metrics = {k: v.detach() for k, v in aux.items()}
+        *_, metrics['miou'] = _stats(metrics.pop('start_prob'),
+                                     metrics.pop('end_prob'), batch,
+                                     lg_frame2sec)
+        return metrics
+
+    train_step.loss_fn = loss_fn
+    return train_step
+
+
+def make_gmd_valid_step(model, params: Dict[str, Any],
+                        lg_frame2sec: bool = False
+                        ) -> Callable[[Batch, torch.Generator], Batch]:
+    """The reference's valid(): the pair forward without dropout on device-
+    made pseudo videos, the losses less the discriminator term, and the
+    decoded spans for the submit file (train.py:209-318)."""
+    m1 = float(params['loss_m1_lambda'])
+    m2 = float(params['loss_m2_lambda'])
+
+    @torch.no_grad()
+    def valid_step(batch: Batch, generator: torch.Generator) -> Batch:
+        model.eval()
+        pseudo = _device_pseudo(batch, generator)
+        out = _pair_forward(model, batch, pseudo, None)
+        loss_g, loss_intra, loss_inter = _match_losses(out, batch, pseudo,
+                                                       m1, m2)
+        pred_f, score, miou = _stats(out['start_prob'], out['end_prob'],
+                                     batch, lg_frame2sec)
+        return {'loss': loss_g + loss_intra + loss_inter, 'loss_g': loss_g,
+                'loss_intra': loss_intra, 'loss_inter': loss_inter,
+                'miou': miou, 'pred_time': pred_f, 'score': score}
+
+    return valid_step
 
 
 def make_gmd_test_step(model, lg_frame2sec: bool = False
-                       ) -> Callable[[Dict[str, torch.Tensor]],
-                                     Dict[str, torch.Tensor]]:
+                       ) -> Callable[[Batch], Batch]:
     """Returns step(batch) -> {loss, miou, pred_time [B, 2], score [B]} on
     the batch's device. loss and miou average over all B rows, padded
     wrap-around rows included, as the JAX step does."""
 
     @torch.no_grad()
-    def test_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def test_step(batch: Batch) -> Batch:
         out = model.eval_forward(batch['video_feat'], batch['sent_feat'],
                                  batch['video_mask'], batch['sent_mask'])
         nll = span_ground_nll(out['start_prob'], out['end_prob'],
                               batch['framestps'])
-        pred, score = span_decode(out['start_prob'], out['end_prob'])
-        pred_f = pred.float()
-        if lg_frame2sec:
-            pred_f = pred_f / batch['nfeats'][:, None].float() \
-                * batch['duration'][:, None].float()
-        iou = iou_per_sample(pred_f, batch['timestps'])
-        return {'loss': nll.mean(), 'miou': iou.mean(), 'pred_time': pred_f,
+        pred_f, score, miou = _stats(out['start_prob'], out['end_prob'],
+                                     batch, lg_frame2sec)
+        return {'loss': nll.mean(), 'miou': miou, 'pred_time': pred_f,
                 'score': score}
 
     return test_step

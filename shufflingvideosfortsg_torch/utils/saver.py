@@ -1,12 +1,14 @@
-"""Run management for the evaluation driver.
+"""Run management for the drivers.
 
 Counterpart of ``RunManager`` in ``shufflingvideosfortsg_tpu/utils/saver.py``
-(``:99``, ``save_submits`` at ``:162``), reduced to what ``main_test``
-needs: the ``<runs>/<alias>/{model,submits}`` layout, ``params.json``, the
-refusal to reuse an alias unless it starts with 'test'/'inference' (the
-old run directory is then removed) and submit names
-``<alias>_<step:05d>_<split>.json``. Checkpoint writing arrives with the
-training slice.
+(``:99-180``): the ``<runs>/<alias>/{model,submits}`` layout,
+``params.json``, the refusal to reuse an alias unless it starts with
+'test'/'inference' (the old run directory is then removed), submit names
+``<alias>_<step:05d>_<split>.json``, ``metrics.jsonl`` and checkpoints.
+A checkpoint is a reference ``.ckp``: the model's ``state_dict`` on the
+CPU, named ``<alias>_<epoch:05d>.ckp``, which the port's and the JAX
+package's drivers read with ``--start_from``. Optimizer state, async
+writes and ``--start_from auto`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import sys
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 
 class RunManager:
@@ -41,6 +44,25 @@ class RunManager:
                 sys.exit(1)
         os.makedirs(self.model_folder, exist_ok=True)
         os.makedirs(self.submits_folder, exist_ok=True)
+
+    def model_path(self, step: int) -> str:
+        return os.path.join(self.model_folder,
+                            '%s_%05d.ckp' % (self.params['alias'], step))
+
+    def save_checkpoint(self, step: int, model: torch.nn.Module) -> str:
+        """Write ``model``'s weights as a reference ``.ckp``; atomic (a
+        temporary file renamed into place). Returns the path."""
+        path = self.model_path(step)
+        tmp = path + '.tmp'
+        torch.save({k: v.detach().cpu()
+                    for k, v in model.state_dict().items()}, tmp)
+        os.replace(tmp, path)
+        return path
+
+    def log_metrics(self, record: Dict[str, Any]) -> None:
+        """Append one JSON line to ``<run>/metrics.jsonl``."""
+        with open(os.path.join(self.root_folder, 'metrics.jsonl'), 'a') as f:
+            f.write(json.dumps(_jsonable(record)) + '\n')
 
     def save_submits(self, submits: Dict[str, Any], step: int,
                      key: str = 'val_data') -> str:

@@ -1,0 +1,107 @@
+"""The port's training driver: ``main_train --device cpu`` at tiny widths
+for one epoch over a synthetic Charades-CD corpus writes a reference
+``.ckp`` that the JAX package's ``load_checkpoint`` reads as such and the
+port's ``main_test`` evaluates; unported options and a missing card
+raise before any work."""
+
+import json
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from shufflingvideosfortsg_tpu.utils.saver import \
+    load_checkpoint as jax_load_checkpoint
+from shufflingvideosfortsg_torch import cli
+from shufflingvideosfortsg_torch.utils.interop import state_dict_from_jax
+
+TINY = ['--video_feature_dim', '32', '--video_len', '24', '--sent_len', '8',
+        '--sent_rnn_hiddendim', '8', '--video_rnn_hiddendim', '8',
+        '--mlp_hidden_dim', '8', '--m_pred_hidden', '16',
+        '--batch_size', '8', '8', '8', '--batch_log_interval', '1']
+
+
+@pytest.fixture(scope='module')
+def corpus(tmp_path_factory):
+    """argv of a tiny train/valid/test corpus (the same synthetic videos
+    under the three split names)."""
+    root = str(tmp_path_factory.mktemp('torch_train_driver'))
+    params = cli.parse_params(['--cfg', 'charades_cd_i3d.yml'] + TINY,
+                              default_model='GMD')
+    anno, feats, vocab, n = chip_smoke.write_corpus(
+        root, params, n_videos=8, name='charades_train.json')
+    for split in ('charades_val.json', 'charades_test_ood.json'):
+        shutil.copy(anno, os.path.join(root, split))
+    argv = ['--cfg', 'charades_cd_i3d.yml', *TINY,
+            '--runs', os.path.join(root, 'runs'), '--train_data', anno,
+            '--val_data', os.path.join(root, 'charades_val.json'),
+            '--test_data', os.path.join(root, 'charades_test_ood.json'),
+            '--train_featpath', feats, '--valid_featpath', feats,
+            '--test_featpath', feats, '--wordtoix_path', vocab['wordtoix'],
+            '--ixtoword_path', vocab['ixtoword'],
+            '--word_fts_path', vocab['word_glove_fts_init']]
+    return root, argv, n
+
+
+def test_train_driver_writes_a_reference_ckp(corpus, capsys):
+    root, argv, n = corpus
+    params = cli.parse_params(argv + ['--alias', 'tiny_train', '--epoch', '1',
+                                      '--device', 'cpu'], default_model='GMD')
+    stats = cli.main_train(params)
+    printed = capsys.readouterr().out
+    assert 'loss :' in printed and 'Max mIoU:' in printed
+    assert set(stats) == {'loss', 'mIoU'} and list(stats['mIoU']) == [0]
+    run = os.path.join(root, 'runs', 'tiny_train')
+    ckp = os.path.join(run, 'model', 'tiny_train_00000.ckp')
+    assert os.path.isfile(ckp)
+    with open(os.path.join(run, 'metrics.jsonl')) as f:
+        phases = [json.loads(line)['phase'] for line in f]
+    assert phases == ['train', 'valid']
+    with open(os.path.join(run, 'submits', 'tiny_train_00000_charades_val.json')) as f:
+        assert sum(map(len, json.load(f)['results'].values())) == n
+
+    # the JAX drivers read it as a reference checkpoint, to the same weights
+    payload, is_ref = jax_load_checkpoint(
+        ckp, torch_convert_kwargs=dict(kind='gmd', predictor_name='mlp',
+                                       m_temp='none'))
+    assert is_ref
+    saved = torch.load(ckp, map_location='cpu', weights_only=True)
+    mapped = state_dict_from_jax(payload['params'])
+    assert set(mapped) == set(saved)
+    for k, v in saved.items():
+        np.testing.assert_array_equal(mapped[k].numpy(), v.numpy(), err_msg=k)
+
+    # and the port's evaluation driver runs from it
+    submit = cli.main_test(cli.parse_params(
+        argv + ['--alias', 'test_from_train', '--start_from', ckp,
+                '--device', 'cpu'], default_model='GMD'))
+    with open(submit) as f:
+        assert sum(map(len, json.load(f)['results'].values())) == n
+
+
+@pytest.mark.parametrize('flag', [
+    ['--multi_seed', '2'], ['--pipeline_stages', '1'],
+    ['--tensor_parallel', '2'], ['--fsdp'], ['--grad_accum_steps', '2'],
+    ['--async_checkpoint'], ['--start_from', 'auto']])
+def test_train_driver_refuses_what_is_not_ported(corpus, flag):
+    root, argv, _ = corpus
+    params = cli.parse_params(argv + ['--alias', 'refused', '--device', 'cpu',
+                                      *flag], default_model='GMD')
+    with pytest.raises(NotImplementedError, match='not ported'):
+        cli.main_train(params)
+    assert not os.path.exists(os.path.join(root, 'runs', 'refused'))
+
+
+def test_train_driver_defaults_to_cuda_and_raises_without_a_card(
+        corpus, monkeypatch):
+    root, argv, _ = corpus
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    params = cli.parse_params(argv + ['--alias', 'no_card'],
+                              default_model='GMD')
+    assert params['device'] == 'cuda'
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        cli.main_train(params)
+    assert not os.path.exists(os.path.join(root, 'runs', 'no_card'))
