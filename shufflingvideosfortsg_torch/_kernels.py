@@ -38,10 +38,10 @@ COMPILE_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    'svtsg_lstm_recurrence': [_P] * 8 + [_I] * 4 + [_P],
-    'svtsg_lstm_smem_bytes': [_I, _I],
-    'svtsg_lstm_bwd': [_P] * 10 + [_I] * 4 + [_P],
-    'svtsg_lstm_bwd_smem_bytes': [_I, _I],
+    'svtsg_lstm_recurrence': [_P] * 8 + [_I] * 10 + [_P],
+    'svtsg_lstm_max_rows': [_I, _I],
+    'svtsg_lstm_bwd': [_P] * 10 + [_I] * 10 + [_P],
+    'svtsg_lstm_bwd_max_rows': [_I, _I],
     'svtsg_scdm_attention': [_P] * 5 + [_I] * 6 + [_P],
     'svtsg_scdm_smem_bytes': [_I, _I, _I],
     'svtsg_scdm_max_words': [],

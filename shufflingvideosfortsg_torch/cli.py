@@ -1,9 +1,11 @@
-"""The GMD train and test drivers.
+"""The GMD and QAVE baseline train and test drivers.
 
 Counterpart of ``shufflingvideosfortsg_tpu/cli.py``: ``build_argparser``
 and ``parse_params`` (``:50-105``, the same flags and merge rules, plus
 ``--device``), ``main_train`` with ``run_valid`` and ``_print_statistics``
-(``:756-1036``, the per-batch loop) and ``main_test`` (``:1041-1113``).
+(``:756-1036``, the per-batch loop), ``main_test`` (``:1041-1113``),
+``main_train_baseline`` with ``run_eval_collect`` (``:1120-1273``) and
+``main_test_baseline`` (``:1276-1322``).
 
 ``--device`` defaults to ``cuda``; without a card the drivers raise rather
 than run on the CPU. ``--device cpu`` runs the kernels' plain versions.
@@ -33,8 +35,10 @@ from .data.pipeline import BatchLoader, SentenceGroundingDataset
 from .eval.iou import retrieval_eval
 from .models.build import build_model
 from .train.state import TrainState
-from .train.steps import (HOST_PAIR_KEYS, TRAIN_KEYS, make_gmd_test_step,
-                          make_gmd_train_step, make_gmd_valid_step, to_device)
+from .train.steps import (HOST_PAIR_KEYS, STEP_KEYS, TRAIN_KEYS,
+                          make_baseline_eval_step, make_baseline_train_step,
+                          make_gmd_test_step, make_gmd_train_step,
+                          make_gmd_valid_step, to_device)
 from .utils.interop import load_reference_ckp
 from .utils.saver import RunManager
 
@@ -175,12 +179,14 @@ def _log_eval_batches(logger, tag, losses: List[float], mious: List[float],
                     len(losses), mean_dt, losses[idx], mious[idx])
 
 
-def _seeded_model(params: Dict[str, Any], device: torch.device):
-    """GMD with torch's default initialisation under ``params['seed']``,
-    built on the CPU (the same weights whatever the device) and moved."""
+def _seeded_model(params: Dict[str, Any], device: torch.device,
+                  kind: str = 'gmd'):
+    """The model of ``kind`` with torch's default initialisation under
+    ``params['seed']``, built on the CPU (the same weights whatever the
+    device) and moved."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(params.get('seed', 123))
-        model = build_model(params, 'gmd', device='cpu')
+        model = build_model(params, kind, device='cpu')
     return model.to(device)
 
 
@@ -214,6 +220,47 @@ def main_train(params: Dict[str, Any]) -> Dict[str, Any]:
     ``test_interval`` epochs (submit JSON under ``submits/``) and a
     reference ``.ckp`` every ``save_model_interval`` epochs and at the
     end. Returns the loss/mIoU statistics it prints."""
+    host_pair = not params.get('on_device_aug', True)
+
+    def steps(model, state, lg, device):
+        valid_step = make_gmd_valid_step(model, params, lg)
+        # validation draws its pseudo videos from a stream of its own
+        valid_gen = torch.Generator(device).manual_seed(
+            params.get('seed', 123) + 0x5a11d)
+
+        def validate(loader, logger, epoch, saver):
+            return run_valid(valid_step, loader, params, logger, epoch, saver,
+                             device, valid_gen)
+        return make_gmd_train_step(model, state, params, lg), validate
+
+    return _train(params, 'gmd', steps,
+                  HOST_PAIR_KEYS if host_pair else TRAIN_KEYS,
+                  ('miou', 'loss_g', 'loss_intra', 'loss_inter', 'loss_d'),
+                  host_pair)
+
+
+def main_train_baseline(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Train the QAVE baseline on the grounding loss alone, with
+    :func:`main_train`'s epochs, valid passes (:func:`run_eval_collect`),
+    checkpoints and statistics."""
+
+    def steps(model, state, lg, device):
+        eval_step = make_baseline_eval_step(model, lg)
+
+        def validate(loader, logger, epoch, saver):
+            return run_eval_collect(eval_step, loader, params, logger, epoch,
+                                    saver, device, 'val_data')
+        return make_baseline_train_step(model, state, params, lg), validate
+
+    return _train(params, 'baseline', steps, STEP_KEYS, ('miou',))
+
+
+def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
+           host_pair: bool = False) -> Dict[str, Any]:
+    """The training loop shared by the drivers. ``steps(model, state, lg,
+    device)`` returns (train_step, validate); ``keys`` are the batch keys
+    a train step reads and ``terms`` the metrics it logs beside the loss;
+    ``host_pair`` has the loader make the pseudo videos."""
     device = resolve_device(params.get('device', 'cuda'))
     _refuse_unported_training(params)
     logger = setup_logger(params['alias'])
@@ -221,10 +268,9 @@ def main_train(params: Dict[str, Any]) -> Dict[str, Any]:
     lg = str(params['vfeat_fn']).lower() == 'lg'
     seed = params.get('seed', 123)
 
-    model = _seeded_model(params, device)
+    model = _seeded_model(params, device, kind)
     train_set = make_dataset(params, 'train_data', 'train_featpath', 'train')
     valid_set = make_dataset(params, 'val_data', 'valid_featpath', 'valid')
-    host_pair = not params.get('on_device_aug', True)
     train_loader = BatchLoader(train_set, params['batch_size'][0],
                                shuffle=True, seed=seed,
                                host_pair_aug=host_pair)
@@ -235,12 +281,8 @@ def main_train(params: Dict[str, Any]) -> Dict[str, Any]:
         logger.warning('resume from checkpoint: %s (weights only)',
                        params['start_from'])
     state = TrainState(model, params, steps_per_epoch=len(train_loader))
-    train_step = make_gmd_train_step(model, state, params, lg)
-    valid_step = make_gmd_valid_step(model, params, lg)
-    keys = HOST_PAIR_KEYS if host_pair else TRAIN_KEYS
+    train_step, validate = steps(model, state, lg, device)
     train_gen = torch.Generator(device).manual_seed(seed)
-    # validation draws its pseudo videos from a stream of its own
-    valid_gen = torch.Generator(device).manual_seed(seed + 0x5a11d)
 
     statistics = {'loss': {}, 'mIoU': {}}
     log_iv = params['batch_log_interval']
@@ -258,11 +300,9 @@ def main_train(params: Dict[str, Any]) -> Dict[str, Any]:
                 if do_log:
                     logger.info(
                         'train: epoch[%03d], batch[%04d/%04d], elapsed '
-                        'time=%0.2fs, loss: %03.3f, miou: %03.3f, loss_g: '
-                        '%03.3f, loss_intra: %03.3f, loss_inter: %03.3f, '
-                        'loss_d: %03.3f', epoch, idx, len(train_loader),
-                        time.time() - t_b, m['loss'], m['miou'], m['loss_g'],
-                        m['loss_intra'], m['loss_inter'], m['loss_d'])
+                        'time=%0.2fs, %s', epoch, idx, len(train_loader),
+                        time.time() - t_b, ', '.join(
+                            f'{k}: {m[k]:03.3f}' for k in ('loss',) + terms))
                 if not math.isfinite(m['loss']):
                     raise FloatingPointError(
                         f'non-finite loss {m["loss"]} at epoch {epoch} batch '
@@ -275,14 +315,11 @@ def main_train(params: Dict[str, Any]) -> Dict[str, Any]:
                     _avg(fetched, 'miou'))
         saver.log_metrics({'epoch': epoch, 'phase': 'train',
                            'seconds': epoch_secs, 'loss': avg_loss,
-                           **{k: _avg(fetched, k) for k in (
-                               'miou', 'loss_g', 'loss_intra', 'loss_inter',
-                               'loss_d')}})
+                           **{k: _avg(fetched, k) for k in terms}})
         if (epoch + 1) % params['test_interval'] == 0 or epoch == 0:
             statistics['loss'][epoch] = round(avg_loss, 3)
         if (epoch + 1) % params['test_interval'] == 0:
-            miou = run_valid(valid_step, valid_loader, params, logger, epoch,
-                             saver, device, valid_gen)
+            miou = validate(valid_loader, logger, epoch, saver)
             saver.log_metrics({'epoch': epoch, 'phase': 'valid',
                                'miou': miou})
             statistics['mIoU'][epoch] = round(miou * 100, 2)
@@ -319,6 +356,29 @@ def run_valid(valid_step, loader, params, logger, epoch: int,
     return miou
 
 
+def run_eval_collect(eval_step, loader, params, logger, epoch: int,
+                     saver: Optional[RunManager], device: torch.device,
+                     submit_key: str) -> float:
+    """The baseline's valid pass: the submit JSON under ``submit_key``'s
+    split and the mean IoU it returns."""
+    pred_dict = _new_pred_dict(params)
+    t0 = time.time()
+    host_batches, outs = [], []
+    for batch in loader:
+        host_batches.append(batch)
+        outs.append(eval_step(to_device(batch, device)))
+    fetched = _fetch(outs)
+    for batch, f in zip(host_batches, fetched):
+        _collect_predictions(pred_dict, batch, f['pred_time'], f['score'])
+    if saver is not None:
+        saver.save_submits(pred_dict, epoch, submit_key)
+    miou = _avg(fetched, 'miou')
+    logger.info('epoch [%03d]: elapsed time:%0.4fs, avg loss: %03.3f, '
+                'miou: %03.3f', epoch, time.time() - t0,
+                _avg(fetched, 'loss'), miou)
+    return miou
+
+
 def _print_statistics(statistics) -> None:
     for title in ('loss', 'mIoU'):
         print(title, ':')
@@ -334,6 +394,15 @@ def _print_statistics(statistics) -> None:
 def main_test(params: Dict[str, Any]) -> str:
     """Evaluate GMD on ``test_data``: write the submit JSON (and its
     ``.metrics.json``), print the retrieval table, return the submit path."""
+    return _test(params, 'gmd', make_gmd_test_step)
+
+
+def main_test_baseline(params: Dict[str, Any]) -> str:
+    """:func:`main_test` for the QAVE baseline."""
+    return _test(params, 'baseline', make_baseline_eval_step)
+
+
+def _test(params: Dict[str, Any], kind: str, make_step) -> str:
     device = resolve_device(params.get('device', 'cuda'))
     if int(params.get('eval_topk', 1) or 1) > 1:
         raise NotImplementedError('eval_topk > 1 is not ported yet')
@@ -342,7 +411,7 @@ def main_test(params: Dict[str, Any]) -> str:
     saver = RunManager(params)
     lg = str(params['vfeat_fn']).lower() == 'lg'
 
-    model = _seeded_model(params, torch.device('cpu'))
+    model = _seeded_model(params, torch.device('cpu'), kind)
     pt.mark('setup')
     test_set = make_dataset(params, 'test_data', 'test_featpath', 'test')
     test_loader = BatchLoader(test_set, params['batch_size'][0],
@@ -354,7 +423,7 @@ def main_test(params: Dict[str, Any]) -> str:
     model = model.to(device).eval()
     pt.mark('init')
 
-    test_step = make_gmd_test_step(model, lg)
+    test_step = make_step(model, lg)
     pred_dict = _new_pred_dict(params)
     t0 = time.time()
     host_batches, outs = [], []

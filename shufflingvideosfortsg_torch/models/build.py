@@ -11,8 +11,13 @@ from __future__ import annotations
 from typing import Any, Dict, Union
 
 import torch
+from torch import nn
 
+from .baseline import Baseline
 from .gmd import GMD
+
+GMD_KINDS = ('gmd', 'qave_match')
+BASELINE_KINDS = ('baseline', 'qave')
 
 
 def model_config_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -40,17 +45,20 @@ def model_config_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def build_model(params: Dict[str, Any], kind: str = 'gmd',
-                device: Union[str, torch.device] = 'cuda') -> GMD:
-    """Build the model on the CPU with torch's default (seeded by the
+                device: Union[str, torch.device] = 'cuda') -> nn.Module:
+    """Build GMD (``kind`` 'gmd' or 'qave_match') or the QAVE baseline
+    ('baseline' or 'qave') on the CPU with torch's default (seeded by the
     caller) initialisation, then move it to ``device``."""
-    if kind.lower() not in ('gmd', 'qave_match'):
-        raise NotImplementedError(f'model kind {kind!r} is not ported yet '
-                                  '(only GMD)')
-    model = GMD(m_temp=params['m_temp'],
-                m_pred_hidden=params['m_pred_hidden'],
-                m_pred_activ=params['m_pred_activ'],
-                disc_dropout=float(params.get('disc_dropout', 0.5)),
-                pseudo_ground=float(
-                    params.get('loss_pseudo_ground_lambda', 0) or 0) > 0,
-                **model_config_from_params(params))
+    if kind.lower() in GMD_KINDS:
+        model = GMD(m_temp=params['m_temp'],
+                    m_pred_hidden=params['m_pred_hidden'],
+                    m_pred_activ=params['m_pred_activ'],
+                    disc_dropout=float(params.get('disc_dropout', 0.5)),
+                    pseudo_ground=float(
+                        params.get('loss_pseudo_ground_lambda', 0) or 0) > 0,
+                    **model_config_from_params(params))
+    elif kind.lower() in BASELINE_KINDS:
+        model = Baseline(**model_config_from_params(params))
+    else:
+        raise ValueError(f'unknown model kind: {kind}')
     return model.to(device)

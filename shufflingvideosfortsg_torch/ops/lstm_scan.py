@@ -1,26 +1,47 @@
-"""K1, K3 and K4: the BiLSTM recurrence, its train forward and its backward.
+"""The BiLSTM recurrence kernels: K1, K3, K4 (flat layout) and K6a-d
+(stacked layout).
 
-Counterparts of ``shufflingvideosfortsg_tpu/ops/pallas/lstm_scan.py``
-(flat layout): ``lstm_scan_pallas_flat`` (K1, :func:`lstm_recurrence`),
-``lstm_scan_pallas_train_flat`` (K3, :func:`lstm_recurrence_train`),
-``lstm_scan_pallas_bwd_flat`` (K4, :func:`lstm_recurrence_bwd`) and the
-custom VJP ``lstm_flat_fused`` that joins K3 and K4
-(:class:`LSTMRecurrence`). The CUDA kernels are ``csrc/lstm_scan.cu`` (K1
-and K3) and ``csrc/lstm_bwd.cu`` (K4). Each ``*_plain`` function is the
-same function as a loop of PyTorch operations, which the wrappers take for
-CPU tensors and the card's checks hold the kernels against.
+Counterparts of ``shufflingvideosfortsg_tpu/ops/pallas/lstm_scan.py``:
+
+- flat layout: ``lstm_scan_pallas_flat`` (K1, :func:`lstm_recurrence`),
+  ``lstm_scan_pallas_train_flat`` (K3, :func:`lstm_recurrence_train`),
+  ``lstm_scan_pallas_bwd_flat`` (K4, :func:`lstm_recurrence_bwd`) and the
+  custom VJP ``lstm_flat_fused`` that joins K3 and K4
+  (:class:`LSTMRecurrence`);
+- stacked layout: ``lstm_scan_pallas`` (K6a, :func:`lstm_scan_stacked`),
+  ``lstm_scan_pallas_train`` (K6b, :func:`lstm_scan_stacked_train`),
+  ``lstm_scan_pallas_bwd`` (K6c, :func:`lstm_scan_stacked_bwd`) and the
+  custom VJP ``lstm_scan_fused`` (K6d, :class:`StackedLSTMRecurrence`).
+
+The CUDA kernels are ``csrc/lstm_scan.cu`` (K1, K3, K6a, K6b: one template
+over layout and dtypes) and ``csrc/lstm_bwd.cu`` (K4, K6c). Each
+``*_plain`` function is the same function as a loop of PyTorch operations,
+with the kernels' rounding points, which the wrappers take for CPU tensors
+and the card's checks hold the kernels against.
+
+A kernel block keeps every batch row of its hidden units in shared memory,
+so a batch has a row cap (at H=256: 186 rows for the forward kernels, 108
+for the backward). A larger batch runs as several launches over near-equal
+row slices (:func:`_batch_chunks`), as the JAX ``BiLSTM`` runs one
+``pallas_call`` per chunk (``ops/rnn.py:159-222``): each launch reads and
+writes its rows in place, and the backward launches after the first add
+their ``d_w_hh`` to the first's. ``launches`` counts launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from .. import _kernels
 
 Tensor = torch.Tensor
+
+# codes of the C entry points' layout and dtype arguments (csrc/common.cuh)
+FLAT, STACKED = 0, 1
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check_inputs(xw_flat: Tensor, w_hh: Tensor) -> Tuple[int, int, int]:
@@ -38,6 +59,21 @@ def _check_inputs(xw_flat: Tensor, w_hh: Tensor) -> Tuple[int, int, int]:
     return T, B, H
 
 
+def _check_stacked(xw: Tensor, w_hh: Tensor) -> Tuple[int, int, int]:
+    for name, t in (('xw', xw), ('w_hh', w_hh)):
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f'{name} must be float32 or bfloat16, got {t.dtype}')
+    if xw.dim() != 4 or xw.shape[1] != 2 or xw.shape[-1] % 4:
+        raise ValueError(f'xw must be [T, 2, B, 4H], got {tuple(xw.shape)}')
+    T, _, B, H4 = xw.shape
+    H = H4 // 4
+    if tuple(w_hh.shape) != (2, H, H4):
+        raise ValueError(f'w_hh must be [2, {H}, {H4}], got {tuple(w_hh.shape)}')
+    if T < 1 or B < 1:
+        raise ValueError(f'empty sequence or batch: T={T}, B={B}')
+    return T, B, H
+
+
 def _on_cpu(*tensors: Tensor) -> bool:
     return all(t.device.type == 'cpu' for t in tensors)
 
@@ -50,6 +86,8 @@ def _cuda_checks(name: str, tensors, H: int) -> torch.device:
                          f'{[str(t.device) for t in tensors]}')
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f'{name} needs contiguous inputs')
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f'{name} needs 16-byte aligned inputs')
     if H % 8:
         raise ValueError(f'{name} needs H % 8 == 0, got H={H}')
     return dev
@@ -59,12 +97,100 @@ def _device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def _check_smem(name: str, smem: int, B: int, H: int) -> None:
-    if smem > _kernels.MAX_SMEM_BYTES:
-        raise ValueError(f'{name}: B={B}, H={H} needs {smem} bytes of shared '
-                         f'memory per block, over the {_kernels.MAX_SMEM_BYTES}'
-                         ' a block may use')
+def _row_cap(name: str, max_rows_fn: str, H: int) -> int:
+    """The most batch rows one launch of a kernel takes at width H, from
+    the C side's shared-memory formula (``max_rows_fn``). Raises when not
+    even one row fits."""
+    cap = getattr(_kernels.library(), max_rows_fn)(H, _kernels.MAX_SMEM_BYTES)
+    if cap < 1:
+        raise ValueError(f'{name}: at H={H} one batch row needs more shared '
+                         f'memory than the {_kernels.MAX_SMEM_BYTES} bytes a '
+                         'block may use')
+    return cap
 
+
+def _batch_chunks(B: int, cap: int) -> List[Tuple[int, int]]:
+    """The fewest near-equal row ranges [b0, b1) that cover B rows with at
+    most ``cap`` rows each; the first ranges take the extra rows."""
+    if B < 1 or cap < 1:
+        raise ValueError(f'need B >= 1 and cap >= 1, got B={B}, cap={cap}')
+    n = -(-B // cap)
+    base, extra = divmod(B, n)
+    ranges, b0 = [], 0
+    for i in range(n):
+        b1 = b0 + base + (i < extra)
+        ranges.append((b0, b1))
+        b0 = b1
+    return ranges
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _launch_forward(name: str, xw: Tensor, w_hh: Tensor, layout: int,
+                    with_c_seq: bool, gates_bf16: bool = False):
+    """Launches of ``csrc/lstm_scan.cu`` over the batch's row slices. K3
+    and K6b carry the c_seq residual, K1 and K6a do not. Returns (out,
+    c_seq or None, h_T, c_T, number of launches)."""
+    if layout == FLAT:
+        T, B, H = _check_inputs(xw, w_hh)
+        out_shape = (T, B, 2 * H)
+    else:
+        T, B, H = _check_stacked(xw, w_hh)
+        out_shape = (T, 2, B, H)
+    dev = _cuda_checks(name, (xw, w_hh), H)
+    lib = _kernels.library()
+    chunks = _batch_chunks(B, _row_cap(name, 'svtsg_lstm_max_rows', H))
+    f32 = dict(device=dev, dtype=torch.float32)
+    out = torch.empty(out_shape, device=dev, dtype=xw.dtype)
+    h_T, c_T = torch.empty(2, B, H, **f32), torch.empty(2, B, H, **f32)
+    c_seq = torch.empty(T, 2, B, H, **f32) if with_c_seq else None
+    rows = max(b1 - b0 for b0, b1 in chunks)
+    h_buf = torch.empty(2, 2, rows, H, **f32)
+    barrier = torch.empty(1, device=dev, dtype=torch.int32)
+    for b0, b1 in chunks:
+        err = lib.svtsg_lstm_recurrence(
+            xw.data_ptr(), w_hh.data_ptr(), out.data_ptr(), h_T.data_ptr(),
+            c_T.data_ptr(), None if c_seq is None else c_seq.data_ptr(),
+            h_buf.data_ptr(), barrier.data_ptr(), T, b1 - b0, H, b0, B,
+            layout, _DTYPE_CODES[xw.dtype], _DTYPE_CODES[w_hh.dtype],
+            int(gates_bf16), _device_index(dev), _stream(dev))
+        _kernels.check(err, name)
+    return out, c_seq, h_T, c_T, len(chunks)
+
+
+def _launch_backward(name: str, args, layout: int, T: int, B: int, H: int):
+    """Launches of ``csrc/lstm_bwd.cu`` over the batch's row slices; every
+    launch after the first adds its d_w_hh to the sum so far. ``args`` are
+    (xw, w_hh, out, c_seq, d_out, d_hT, d_cT). Returns (d_xw f32, d_w_hh
+    f32, number of launches)."""
+    xw, w_hh = args[:2]
+    dev = _cuda_checks(name, args, H)
+    lib = _kernels.library()
+    chunks = _batch_chunks(B, _row_cap(name, 'svtsg_lstm_bwd_max_rows', H))
+    d_xw = torch.empty(xw.shape, device=dev, dtype=torch.float32)
+    d_w = torch.empty(2, H, 4 * H, device=dev, dtype=torch.float32)
+    barrier = torch.empty(1, device=dev, dtype=torch.int32)
+    for i, (b0, b1) in enumerate(chunks):
+        err = lib.svtsg_lstm_bwd(
+            *(a.data_ptr() for a in args), d_xw.data_ptr(), d_w.data_ptr(),
+            barrier.data_ptr(), T, b1 - b0, H, b0, B, int(i > 0), layout,
+            _DTYPE_CODES[xw.dtype], _DTYPE_CODES[w_hh.dtype],
+            _device_index(dev), _stream(dev))
+        _kernels.check(err, name)
+    return d_xw, d_w, len(chunks)
+
+
+def _cotangent(g: Optional[Tensor], shape, dtype, like: Tensor) -> Tensor:
+    """An output's cotangent as a kernel takes it; an output that reached
+    no loss has none, which is a zero cotangent."""
+    if g is None:
+        return like.new_zeros(shape, dtype=dtype)
+    return g.to(dtype).contiguous()
+
+
+# --- flat layout: K1, K3, K4 -------------------------------------------------
 
 def lstm_recurrence_train_plain(xw_flat: Tensor, w_hh: Tensor
                                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
@@ -99,31 +225,6 @@ def lstm_recurrence_plain(xw_flat: Tensor, w_hh: Tensor
     return out, h_T, c_T
 
 
-def _launch_recurrence(xw_flat: Tensor, w_hh: Tensor, with_c_seq: bool):
-    """One launch of ``csrc/lstm_scan.cu``: K3 with the c_seq residual, K1
-    without. Returns (out, c_seq or None, h_T, c_T)."""
-    T, B, H = _check_inputs(xw_flat, w_hh)
-    name = 'lstm_recurrence_train' if with_c_seq else 'lstm_recurrence'
-    dev = _cuda_checks(name, (xw_flat, w_hh), H)
-    lib = _kernels.library()
-    _check_smem(name, lib.svtsg_lstm_smem_bytes(B, H), B, H)
-    out = torch.empty(T, B, 2 * H, device=dev, dtype=torch.float32)
-    h_T = torch.empty(2, B, H, device=dev, dtype=torch.float32)
-    c_T = torch.empty(2, B, H, device=dev, dtype=torch.float32)
-    c_seq = (torch.empty(T, 2, B, H, device=dev, dtype=torch.float32)
-             if with_c_seq else None)
-    h_buf = torch.empty(2, 2, B, H, device=dev, dtype=torch.float32)
-    barrier = torch.empty(1, device=dev, dtype=torch.int32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.svtsg_lstm_recurrence(
-        xw_flat.data_ptr(), w_hh.data_ptr(), out.data_ptr(), h_T.data_ptr(),
-        c_T.data_ptr(), None if c_seq is None else c_seq.data_ptr(),
-        h_buf.data_ptr(), barrier.data_ptr(), T, B, H, _device_index(dev),
-        ctypes.c_void_p(stream))
-    _kernels.check(err, name)
-    return out, c_seq, h_T, c_T
-
-
 def lstm_recurrence(xw_flat: Tensor, w_hh: Tensor
                     ) -> Tuple[Tensor, Tensor, Tensor]:
     """Run both directions of one BiLSTM layer.
@@ -139,8 +240,8 @@ def lstm_recurrence(xw_flat: Tensor, w_hh: Tensor
     tensors take :func:`lstm_recurrence_plain` and CUDA tensors launch K1
     (``csrc/lstm_scan.cu``) or raise: it takes contiguous f32 inputs on one
     card, any T >= 1, H a multiple of 8 (the grid is 2H/8 blocks, which
-    must all be resident at once) and B up to what one block's shared
-    memory holds (B <= 186 at H = 256).
+    must all be resident at once) and any B, in one launch per slice of at
+    most 186 rows at H = 256.
     """
     if torch.is_grad_enabled() and (xw_flat.requires_grad
                                     or w_hh.requires_grad):
@@ -148,8 +249,9 @@ def lstm_recurrence(xw_flat: Tensor, w_hh: Tensor
     _check_inputs(xw_flat, w_hh)
     if _on_cpu(xw_flat, w_hh):
         return lstm_recurrence_plain(xw_flat, w_hh)
-    out, _, h_T, c_T = _launch_recurrence(xw_flat, w_hh, with_c_seq=False)
-    lstm_recurrence.launches += 1
+    out, _, h_T, c_T, n = _launch_forward('lstm_recurrence', xw_flat, w_hh,
+                                          FLAT, with_c_seq=False)
+    lstm_recurrence.launches += n
     return out, h_T, c_T
 
 
@@ -171,9 +273,10 @@ def lstm_recurrence_train(xw_flat: Tensor, w_hh: Tensor
     _check_inputs(xw_flat, w_hh)
     if _on_cpu(xw_flat, w_hh):
         return lstm_recurrence_train_plain(xw_flat, w_hh)
-    result = _launch_recurrence(xw_flat, w_hh, with_c_seq=True)
-    lstm_recurrence_train.launches += 1
-    return result
+    *result, n = _launch_forward('lstm_recurrence_train', xw_flat, w_hh,
+                                 FLAT, with_c_seq=True)
+    lstm_recurrence_train.launches += n
+    return tuple(result)
 
 
 lstm_recurrence_train.launches = 0
@@ -249,26 +352,15 @@ def lstm_recurrence_bwd(xw_flat: Tensor, w_hh: Tensor, out: Tensor,
 
     CPU tensors take :func:`lstm_recurrence_bwd_plain`. CUDA tensors launch
     ``csrc/lstm_bwd.cu`` or raise: contiguous f32 inputs on one card, H a
-    multiple of 8 and B up to what one block's shared memory holds (B <=
-    108 at H = 256).
+    multiple of 8 and any B, in one launch per slice of at most 108 rows at
+    H = 256.
     """
     args = (xw_flat, w_hh, out, c_seq, d_out, d_hT, d_cT)
     T, B, H = _check_bwd_inputs(*args)
     if _on_cpu(*args):
         return lstm_recurrence_bwd_plain(*args)
-    dev = _cuda_checks('lstm_recurrence_bwd', args, H)
-    lib = _kernels.library()
-    _check_smem('lstm_recurrence_bwd', lib.svtsg_lstm_bwd_smem_bytes(B, H),
-                B, H)
-    d_xw = torch.empty(T, B, 8 * H, device=dev, dtype=torch.float32)
-    d_w = torch.empty(2, H, 4 * H, device=dev, dtype=torch.float32)
-    barrier = torch.empty(1, device=dev, dtype=torch.int32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.svtsg_lstm_bwd(*(a.data_ptr() for a in args), d_xw.data_ptr(),
-                             d_w.data_ptr(), barrier.data_ptr(), T, B, H,
-                             _device_index(dev), ctypes.c_void_p(stream))
-    _kernels.check(err, 'lstm_recurrence_bwd')
-    lstm_recurrence_bwd.launches += 1
+    d_xw, d_w, n = _launch_backward('lstm_recurrence_bwd', args, FLAT, T, B, H)
+    lstm_recurrence_bwd.launches += n
     return d_xw, d_w
 
 
@@ -292,13 +384,229 @@ class LSTMRecurrence(torch.autograd.Function):
     def backward(ctx, d_out, d_hT, d_cT):
         xw_flat, w_hh, out, c_seq = ctx.saved_tensors
         T, B, H = _check_inputs(xw_flat, w_hh)
-
-        def cotangent(g, shape):
-            # an output that reached no loss has no gradient
-            return (xw_flat.new_zeros(shape) if g is None
-                    else g.contiguous())
-
+        f32 = torch.float32
         d_xw, d_w = lstm_recurrence_bwd(
-            xw_flat, w_hh, out, c_seq, cotangent(d_out, (T, B, 2 * H)),
-            cotangent(d_hT, (2, B, H)), cotangent(d_cT, (2, B, H)))
+            xw_flat, w_hh, out, c_seq,
+            _cotangent(d_out, (T, B, 2 * H), f32, xw_flat),
+            _cotangent(d_hT, (2, B, H), f32, xw_flat),
+            _cotangent(d_cT, (2, B, H), f32, xw_flat))
         return d_xw, d_w
+
+
+# --- stacked layout: K6a, K6b, K6c, K6d --------------------------------------
+
+def _stacked_forward_plain(xw: Tensor, w_hh: Tensor, gates_bf16: bool):
+    """The stacked recurrence as PyTorch operations, with the rounding
+    points of the JAX bodies (``ops/pallas/lstm_scan.py:115-140``, :356-370):
+    h cast to w_hh's dtype for the product, which sums in f32; the
+    pre-activation plus xw in f32; with ``gates_bf16`` the pre-activation
+    rounded to bf16 and the sigmoid (as 1/(1+exp(-v))) and tanh(g) taken
+    on bf16 tensors; c and h in f32; out in xw's dtype. Returns (out,
+    c_seq, h_T, c_T)."""
+    T, B, H = _check_stacked(xw, w_hh)
+    f32, bf16 = torch.float32, torch.bfloat16
+    w = w_hh.to(f32)
+    h = xw.new_zeros(2, B, H, dtype=f32)
+    c = xw.new_zeros(2, B, H, dtype=f32)
+    out = xw.new_empty(T, 2, B, H)
+    c_seq = xw.new_empty(T, 2, B, H, dtype=f32)
+    one = torch.ones((), dtype=bf16, device=xw.device)
+
+    def sigmoid_bf16(v):
+        return one / (one + torch.exp(-v))
+
+    for s in range(T):
+        gates = torch.baddbmm(xw[s].to(f32), h.to(w_hh.dtype).to(f32), w)
+        if gates_bf16:
+            gates = gates.to(bf16)
+            i, f, o = (sigmoid_bf16(gates[..., k * H:(k + 1) * H]).to(f32)
+                       for k in (0, 1, 3))
+            g = torch.tanh(gates[..., 2 * H:3 * H]).to(f32)
+        else:
+            i = torch.sigmoid(gates[..., :H])
+            f = torch.sigmoid(gates[..., H:2 * H])
+            g = torch.tanh(gates[..., 2 * H:3 * H])
+            o = torch.sigmoid(gates[..., 3 * H:])
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        out[s] = h.to(out.dtype)
+        c_seq[s] = c
+    return out, c_seq, h, c
+
+
+def lstm_scan_stacked_plain(xw: Tensor, w_hh: Tensor,
+                            gates_bf16: bool = False
+                            ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Same contract as :func:`lstm_scan_stacked`, as PyTorch operations."""
+    out, _, h_T, c_T = _stacked_forward_plain(xw, w_hh, gates_bf16)
+    return out, h_T, c_T
+
+
+def lstm_scan_stacked(xw: Tensor, w_hh: Tensor, gates_bf16: bool = False
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K6a: both directions of one BiLSTM layer on the stacked layout.
+
+    xw: [T, 2, B, 4H] f32 or bf16, the input projections plus biases with
+    direction 1 already time-reversed (step s reads ``xw[s, d]``); w_hh:
+    [2, H, 4H] f32 or bf16 (then h is rounded to bf16 before the product,
+    which sums in f32), gate order i, f, g, o. ``gates_bf16`` takes the
+    gate nonlinearities in bf16 (``lstm_scan.py:120-137``). Zero initial
+    state, f32 carries. Returns (out [T, 2, B, H] in xw's dtype, indexed by
+    step, h_T [2, B, H] f32, c_T [2, B, H] f32).
+
+    When autograd needs a gradient the call goes through
+    :class:`StackedLSTMRecurrence` (which has no ``gates_bf16``, as in
+    JAX). Otherwise CPU tensors take :func:`lstm_scan_stacked_plain` and
+    CUDA tensors launch ``csrc/lstm_scan.cu`` or raise, on K1's conditions.
+    """
+    if torch.is_grad_enabled() and (xw.requires_grad or w_hh.requires_grad):
+        if gates_bf16:
+            raise RuntimeError('lstm_scan_stacked has no backward with '
+                               'gates_bf16; call it under torch.no_grad()')
+        return StackedLSTMRecurrence.apply(xw, w_hh)
+    _check_stacked(xw, w_hh)
+    if _on_cpu(xw, w_hh):
+        return lstm_scan_stacked_plain(xw, w_hh, gates_bf16)
+    out, _, h_T, c_T, n = _launch_forward('lstm_scan_stacked', xw, w_hh,
+                                          STACKED, False, gates_bf16)
+    lstm_scan_stacked.launches += n
+    return out, h_T, c_T
+
+
+lstm_scan_stacked.launches = 0
+
+
+def lstm_scan_stacked_train_plain(xw: Tensor, w_hh: Tensor
+                                  ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Same contract as :func:`lstm_scan_stacked_train`, as PyTorch
+    operations."""
+    return _stacked_forward_plain(xw, w_hh, gates_bf16=False)
+
+
+def lstm_scan_stacked_train(xw: Tensor, w_hh: Tensor
+                            ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """K6b: :func:`lstm_scan_stacked` (without ``gates_bf16``) plus the
+    cell states of every step. Returns (out [T, 2, B, H] in xw's dtype,
+    c_seq [T, 2, B, H] f32, h_T, c_T f32). CPU tensors take
+    :func:`lstm_scan_stacked_train_plain`; CUDA tensors launch
+    ``csrc/lstm_scan.cu`` with its c_seq stream on, or raise. Not
+    differentiable itself: :class:`StackedLSTMRecurrence` is."""
+    _check_stacked(xw, w_hh)
+    if _on_cpu(xw, w_hh):
+        return lstm_scan_stacked_train_plain(xw, w_hh)
+    *result, n = _launch_forward('lstm_scan_stacked_train', xw, w_hh,
+                                 STACKED, with_c_seq=True)
+    lstm_scan_stacked_train.launches += n
+    return tuple(result)
+
+
+lstm_scan_stacked_train.launches = 0
+
+
+def _check_stacked_bwd(xw, w_hh, out, c_seq, d_out, d_hT, d_cT):
+    T, B, H = _check_stacked(xw, w_hh)
+    f32 = torch.float32
+    want = {'out': ((T, 2, B, H), xw.dtype), 'c_seq': ((T, 2, B, H), f32),
+            'd_out': ((T, 2, B, H), xw.dtype), 'd_hT': ((2, B, H), f32),
+            'd_cT': ((2, B, H), f32)}
+    got = {'out': out, 'c_seq': c_seq, 'd_out': d_out, 'd_hT': d_hT,
+           'd_cT': d_cT}
+    for k, t in got.items():
+        shape, dtype = want[k]
+        if t.dtype != dtype:
+            raise TypeError(f'lstm_scan_stacked_bwd: {k} must be {dtype}, '
+                            f'got {t.dtype}')
+        if tuple(t.shape) != shape:
+            raise ValueError(f'{k} must be {list(shape)}, got {list(t.shape)}')
+    return T, B, H
+
+
+def lstm_scan_stacked_bwd_plain(xw: Tensor, w_hh: Tensor, out: Tensor,
+                                c_seq: Tensor, d_out: Tensor, d_hT: Tensor,
+                                d_cT: Tensor) -> Tuple[Tensor, Tensor]:
+    """The stacked backward recurrence as PyTorch operations, with the
+    rounding points of the JAX body (``ops/pallas/lstm_scan.py:441-491``):
+    h_prev cast to w_hh's dtype for the gate recompute and the d_w_hh
+    product, dgates cast to it for the dh_prev and d_w_hh products, all
+    summed in f32. Same contract as :func:`lstm_scan_stacked_bwd`."""
+    T, B, H = _check_stacked_bwd(xw, w_hh, out, c_seq, d_out, d_hT, d_cT)
+    f32, wt = torch.float32, w_hh.dtype
+    w = w_hh.to(f32)
+    dh = d_hT.clone()
+    dc = d_cT.clone()
+    d_xw = xw.new_empty(T, 2, B, 4 * H, dtype=f32)
+    d_w = xw.new_zeros(2, H, 4 * H, dtype=f32)
+    zeros = xw.new_zeros(2, B, H, dtype=f32)
+    for s in range(T - 1, -1, -1):
+        h_prev = out[s - 1].to(wt).to(f32) if s > 0 else zeros
+        c_prev = c_seq[s - 1] if s > 0 else zeros
+        gates = torch.baddbmm(xw[s].to(f32), h_prev, w)
+        i = torch.sigmoid(gates[..., :H])
+        f = torch.sigmoid(gates[..., H:2 * H])
+        g = torch.tanh(gates[..., 2 * H:3 * H])
+        o = torch.sigmoid(gates[..., 3 * H:])
+        dh = dh + d_out[s].to(f32)
+        tc = torch.tanh(c_seq[s])
+        dc = dc + dh * o * (1.0 - tc * tc)
+        dgates = torch.cat([dc * g * i * (1.0 - i),
+                            dc * c_prev * f * (1.0 - f),
+                            dc * i * (1.0 - g * g),
+                            dh * tc * o * (1.0 - o)], dim=-1)  # [2, B, 4H]
+        d_xw[s] = dgates
+        dgates = dgates.to(wt).to(f32)
+        dh = torch.bmm(dgates, w.transpose(1, 2))
+        d_w += torch.bmm(h_prev.transpose(1, 2), dgates)
+        dc = dc * f
+    return d_xw, d_w
+
+
+def lstm_scan_stacked_bwd(xw: Tensor, w_hh: Tensor, out: Tensor,
+                          c_seq: Tensor, d_out: Tensor, d_hT: Tensor,
+                          d_cT: Tensor) -> Tuple[Tensor, Tensor]:
+    """K6c: gradients of one stacked BiLSTM layer's recurrence.
+
+    Takes the forward's inputs (xw [T, 2, B, 4H], w_hh [2, H, 4H]), its
+    residuals from :func:`lstm_scan_stacked_train` (out [T, 2, B, H] in
+    xw's dtype, c_seq [T, 2, B, H] f32) and the cotangents of its outputs
+    (d_out like out, d_hT and d_cT [2, B, H] f32). Returns (d_xw
+    [T, 2, B, 4H] f32, d_w_hh [2, H, 4H] f32).
+
+    CPU tensors take :func:`lstm_scan_stacked_bwd_plain`. CUDA tensors
+    launch ``csrc/lstm_bwd.cu`` or raise, on K4's conditions.
+    """
+    args = (xw, w_hh, out, c_seq, d_out, d_hT, d_cT)
+    T, B, H = _check_stacked_bwd(*args)
+    if _on_cpu(*args):
+        return lstm_scan_stacked_bwd_plain(*args)
+    d_xw, d_w, n = _launch_backward('lstm_scan_stacked_bwd', args, STACKED,
+                                    T, B, H)
+    lstm_scan_stacked_bwd.launches += n
+    return d_xw, d_w
+
+
+lstm_scan_stacked_bwd.launches = 0
+
+
+class StackedLSTMRecurrence(torch.autograd.Function):
+    """K6d, the port of the custom VJP ``lstm_scan_fused``
+    (``ops/pallas/lstm_scan.py:1061-1082``): K6b forward, K6c backward. Same
+    contract as :func:`lstm_scan_stacked` without ``gates_bf16``. As
+    ``_fused_bwd`` does, it casts d_out to out's dtype before K6c and
+    returns d_xw in xw's dtype and d_w_hh in w_hh's."""
+
+    @staticmethod
+    def forward(ctx, xw: Tensor, w_hh: Tensor):
+        out, c_seq, h_T, c_T = lstm_scan_stacked_train(xw, w_hh)
+        ctx.save_for_backward(xw, w_hh, out, c_seq)
+        return out, h_T, c_T
+
+    @staticmethod
+    def backward(ctx, d_out, d_hT, d_cT):
+        xw, w_hh, out, c_seq = ctx.saved_tensors
+        _, B, H = _check_stacked(xw, w_hh)
+        f32 = torch.float32
+        d_xw, d_w = lstm_scan_stacked_bwd(
+            xw, w_hh, out, c_seq, _cotangent(d_out, out.shape, out.dtype, xw),
+            _cotangent(d_hT, (2, B, H), f32, xw),
+            _cotangent(d_cT, (2, B, H), f32, xw))
+        return d_xw.to(xw.dtype), d_w.to(w_hh.dtype)

@@ -1,9 +1,11 @@
-"""The GMD train, valid and test steps.
+"""The GMD train, valid and test steps, and the QAVE baseline's train and
+eval steps.
 
 Counterpart of ``shufflingvideosfortsg_tpu/train/steps.py``:
 ``make_gmd_train_step`` (``:118-224``), ``make_gmd_valid_step``
-(``:227-269``) and ``make_gmd_test_step`` (``:301-351``, the ungrouped,
-top-1 form). The train loss is the reference's (grounding/
+(``:227-269``), ``make_gmd_test_step`` (``:301-351``, the ungrouped,
+top-1 form), ``make_baseline_train_step`` (``:358-393``) and
+``make_baseline_eval_step`` (``:396-437``, top-1). The train loss is the reference's (grounding/
 train.py:140-165): grounding NLL + m1 * (intra-video BCE on raw and pseudo)
 + m2 * (inter-video span KL) + disc * (order-discrimination CE), plus
 ``loss_pseudo_ground_lambda`` * the grounding NLL of the pseudo stream
@@ -93,6 +95,11 @@ def _match_losses(out, batch: Batch, pseudo: Batch, m1: float, m2: float):
     return loss_g, loss_intra, loss_inter
 
 
+def _refuse_grad_accum(params: Dict[str, Any]) -> None:
+    if int(params.get('grad_accum_steps', 1) or 1) > 1:
+        raise NotImplementedError('grad_accum_steps > 1 is not ported yet')
+
+
 def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
                         lg_frame2sec: bool = False
                         ) -> Callable[[Batch, torch.Generator], Batch]:
@@ -107,8 +114,7 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
     md = float(params['loss_disc_lambda'])
     mpg = float(params.get('loss_pseudo_ground_lambda', 0) or 0)
     on_device_aug = bool(params.get('on_device_aug', True))
-    if int(params.get('grad_accum_steps', 1) or 1) > 1:
-        raise NotImplementedError('grad_accum_steps > 1 is not ported yet')
+    _refuse_grad_accum(params)
 
     def loss_fn(batch: Batch, pseudo: Batch, generator):
         out = _pair_forward(model, batch, pseudo, generator)
@@ -176,11 +182,13 @@ def make_gmd_valid_step(model, params: Dict[str, Any],
 def make_gmd_test_step(model, lg_frame2sec: bool = False
                        ) -> Callable[[Batch], Batch]:
     """Returns step(batch) -> {loss, miou, pred_time [B, 2], score [B]} on
-    the batch's device. loss and miou average over all B rows, padded
-    wrap-around rows included, as the JAX step does."""
+    the batch's device, from the model in eval mode (no dropout, whatever
+    mode a train step left it in). loss and miou average over all B rows,
+    padded wrap-around rows included, as the JAX step does."""
 
     @torch.no_grad()
     def test_step(batch: Batch) -> Batch:
+        model.eval()
         out = model.eval_forward(batch['video_feat'], batch['sent_feat'],
                                  batch['video_mask'], batch['sent_mask'])
         nll = span_ground_nll(out['start_prob'], out['end_prob'],
@@ -191,3 +199,46 @@ def make_gmd_test_step(model, lg_frame2sec: bool = False
                 'score': score}
 
     return test_step
+
+
+def make_baseline_train_step(model, state: TrainState,
+                             params: Dict[str, Any],
+                             lg_frame2sec: bool = False
+                             ) -> Callable[[Batch, torch.Generator], Batch]:
+    """Returns step(batch, generator) -> {loss, miou}: one optimizer update
+    of ``state`` on the grounding NLL of one batch, with dropout masks from
+    the generator. ``step.loss_fn(batch, generator) -> (loss, aux)`` is the
+    loss alone."""
+    _refuse_grad_accum(params)
+
+    def loss_fn(batch: Batch, generator):
+        out = model(batch['video_feat'], batch['sent_feat'],
+                    batch['video_mask'], batch['sent_mask'],
+                    generator=generator)
+        loss = span_ground_loss(out['start_prob'], out['end_prob'],
+                                batch['framestps'])
+        return loss, {'loss': loss, 'start_prob': out['start_prob'],
+                      'end_prob': out['end_prob']}
+
+    def train_step(batch: Batch, generator: torch.Generator) -> Batch:
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, aux = loss_fn(batch, generator)
+        loss.backward()
+        state.apply_gradients()
+        *_, miou = _stats(aux['start_prob'].detach(),
+                          aux['end_prob'].detach(), batch, lg_frame2sec)
+        return {'loss': loss.detach(), 'miou': miou}
+
+    train_step.loss_fn = loss_fn
+    return train_step
+
+
+def make_baseline_eval_step(model, lg_frame2sec: bool = False,
+                            topk: int = 1) -> Callable[[Batch], Batch]:
+    """The baseline's valid and test step: ``make_gmd_test_step``'s
+    {loss, miou, pred_time, score} on the model's ``eval_forward`` in eval
+    mode, which for the baseline is its forward without dropout."""
+    if topk > 1:
+        raise NotImplementedError('eval_topk > 1 is not ported yet')
+    return make_gmd_test_step(model, lg_frame2sec)

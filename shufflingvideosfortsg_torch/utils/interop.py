@@ -52,8 +52,11 @@ def bilstm_to_torch(tree: Dict, prefix: str, num_layers: int,
 def state_dict_from_jax(params_np: Dict, sent_layers: int = 2,
                         video_layers: int = 2, nblocks: int = 2,
                         predictor_name: str = 'mlp',
-                        m_temp: str = 'none') -> Dict[str, torch.Tensor]:
-    """The JAX package's GMD parameter tree -> the port's ``state_dict``.
+                        m_temp: str = 'none',
+                        baseline: bool = False) -> Dict[str, torch.Tensor]:
+    """The JAX package's GMD or (``baseline``) QAVE baseline parameter
+    tree -> the port's ``state_dict``. The baseline has no CSMM and no
+    discriminator.
 
     Covers what the port builds: the 'mlp' span predictor and CSMM
     without a temporal model; other settings raise."""
@@ -81,6 +84,8 @@ def state_dict_from_jax(params_np: Dict, sent_layers: int = 2,
     pred = params_np['span_predictor']['predictor']
     for n in ('start_mlp_1', 'start_mlp_2', 'end_mlp_1', 'end_mlp_2'):
         linear_to_torch(pred[n], f'span_predictor.predictor.{n}', out)
+    if baseline:
+        return out
     csmm = params_np['csmm']
     linear_to_torch(csmm['predict_1'], 'csmm.predict.predict.0', out)
     linear_to_torch(csmm['predict_2'], 'csmm.predict.predict.2', out)

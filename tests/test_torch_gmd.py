@@ -109,7 +109,11 @@ def test_build_model_reads_the_config_and_refuses_what_is_not_ported():
         {k: v.shape for k, v in _port_model(False).state_dict().items()}
     with pytest.raises(NotImplementedError, match='bf16'):
         build_model(dict(params, precision='bf16'), 'gmd', device='cpu')
-    with pytest.raises(NotImplementedError, match='baseline'):
-        build_model(params, 'baseline', device='cpu')
+    # the baseline builds (tests/test_torch_baseline.py); unknown kinds raise
+    assert not any(k.startswith(('csmm.', 'tod.'))
+                   for k in build_model(params, 'baseline', device='cpu')
+                   .state_dict())
+    with pytest.raises(ValueError, match='unknown model kind'):
+        build_model(params, 'graph', device='cpu')
     with pytest.raises(NotImplementedError, match='tied_lstm'):
         build_model(dict(params, predictor='tied_lstm'), 'gmd', device='cpu')
