@@ -31,17 +31,24 @@ HEADERS = ('common.cuh',)
 MAX_SMEM_BYTES = 232448  # dynamic shared memory one block may use on Hopper
 ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 # no --use_fast_math: tanhf/expf keep the f32 results inside the stated
-# tolerances; -Xptxas -v reports registers, shared memory and spills
+# tolerances; -Xptxas -v reports registers, shared memory and spills;
+# --split-compile 0 (a CUDA 12 option; tried with 12.9) spreads one
+# source's template instantiations over the idle cores, which halves the
+# build
 COMPILE_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
-                              '-Xptxas', '-v')
+                              '-Xptxas', '-v', '--split-compile', '0')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    'svtsg_lstm_recurrence': [_P] * 8 + [_I] * 10 + [_P],
-    'svtsg_lstm_max_rows': [_I, _I],
-    'svtsg_lstm_bwd': [_P] * 10 + [_I] * 10 + [_P],
-    'svtsg_lstm_bwd_max_rows': [_I, _I],
+    'svtsg_lstm_recurrence': [_P] * 6 + [_I] * 9 + [_P],
+    'svtsg_lstm_recurrence_floor': [_P] * 5 + [_I] * 5 + [_P],
+    'svtsg_lstm_max_rows': [_I, _I, _I],
+    'svtsg_lstm_active_clusters': [_I, _I, _I, _I],
+    'svtsg_lstm_bwd': [_P] * 9 + [_I] * 8 + [_P],
+    'svtsg_lstm_bwd_max_rows': [_I, _I, _I],
+    'svtsg_lstm_bwd_active_clusters': [_I, _I, _I, _I],
+    'svtsg_lstm_weight_grad': [_P] * 3 + [_I] * 7 + [_P],
     'svtsg_scdm_attention': [_P] * 5 + [_I] * 6 + [_P],
     'svtsg_scdm_smem_bytes': [_I, _I, _I],
     'svtsg_scdm_max_words': [],

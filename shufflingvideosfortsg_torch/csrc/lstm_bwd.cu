@@ -23,36 +23,53 @@
 // gates are recomputed from h_prev and xw, not stored. As in the JAX body
 // (:444-489), h_prev is cast to WT before the products, the gates are f32,
 // and dgates is cast to WT for the dh_prev and d_w_hh products, both summed
-// in f32; d_xw holds the f32 dgates. A launch may run rows [b0, b0 + B) of
-// a batch of BS rows; with `accumulate` it adds its d_w_hh to what d_w_hh
-// holds (the batch's earlier slices, run before on the same stream).
+// in f32; d_xw holds the f32 dgates.
 //
 // What bounds it on an H100. Per layer it does three products of the
 // forward's size: the gate recompute h_prev @ W_hh, dh_prev = dgates @
-// W_hh^T and d_w_hh += h_prev^T @ dgates, 3 * 2*T*2*B*H*4H = 25.8 GFLOP at
-// T=128, B=64, H=256 (0.385 ms at the 67 TFLOP/s f32 peak), against ~120 MB
-// of traffic (36 us at 3.35 TB/s): bound by operations. The T steps are
-// serially dependent, and dh_prev needs every gate column of the step:
-// one grid-wide exchange per step, which no roofline counts.
+// W_hh^T and d_w_hh = sum_s h_prev^T @ dgates, 3 * 2*T*2*B*H*4H = 25.8 GFLOP
+// at T=128, B=64, H=256 (0.385 ms at the 67 TFLOP/s f32 peak), against
+// ~120 MB of traffic (36 us at 3.35 TB/s): bound by operations. The T steps
+// are serially dependent, and dh_prev needs every gate column of the step:
+// one exchange per step, which no roofline counts.
 //
-// Design. One persistent cooperative launch of 2*H/J blocks, as K1: block
-// (d, J units) owns the 4*J = 32 gate columns of its units. It keeps in
-// shared memory, as f32, W_hh[d][:, own columns] (for the gate recompute),
-// the rows W_hh[d][own units, :] (for dh_prev) and d_w_hh[d][:, own
-// columns] (the accumulator, written once at the end): 96 KB at H=256. Per
-// step each thread owns (batch row, unit) pairs: it recomputes the four
-// gates, forms the four dgates from dh, dc, c[s], c[s-1], and writes them
-// straight into d_xw, the kernel's output, and into shared memory. The
-// block then adds h_prev^T @ dgates to its d_w_hh columns, all blocks meet
-// at a grid-wide barrier, and each block reads the step's whole dgates row
-// back from d_xw through L2 (__ldcg, in chunks of rows staged over the
-// h_prev buffer) to form dh_prev for its own units. dc never leaves the
-// block; dh_prev is only needed by the block that owns the unit, so one
-// barrier a step suffices and the rows of d_xw, which differ every step,
-// need no second buffer.
+// Design. Two kernels, launched one after the other on the caller's stream
+// by one C entry point.
+//
+// 1. The recurrence (lstm_bwd_kernel) has the forward's partition
+//    (lstm_scan.cu): a cluster of 8 blocks a (direction, slice of batch
+//    rows), block j owning H/8 units and the W_hh[d][:, 4 gate columns of its
+//    units] slice in shared memory; no grid-wide barrier, no cooperative
+//    launch, any B in one launch. Only two things lie on a step's serial
+//    chain: the elementwise gate algebra (dh, dc -> the four dgates, written
+//    straight into d_xw) and dh_prev. For dh_prev block j forms the partial
+//    dgates[rows, own columns] @ W_hh[:, own columns]^T for ALL H units (at
+//    H=256 from W values a thread keeps in registers for the whole run:
+//    dh_product_reg; at other widths from the shared-memory slice, a
+//    thread owning one k and 5 or 10 rows, the slice's row stride odd so
+//    that a warp's 32 k spread over all banks: dh_product) and
+//    writes each unit's partial into the owner block's shared memory
+//    (distributed shared memory, double-buffered by step parity); after the
+//    cluster barrier the owner adds the 8 partials in a fixed order. dc
+//    never leaves the block. The gate recompute of the NEXT step (it needs
+//    only xw and out, saved by the forward) runs between the barrier's
+//    arrive and its wait, so the exchange's latency hides behind it; xw,
+//    h_prev, d_out and c_seq are fetched a step ahead with cp.async while
+//    the chain's part of the step runs, so no load from device memory lies
+//    on the chain.
+// 2. The weight gradient (lstm_weight_grad_kernel) is out of the loop: once
+//    d_xw is written, d_w_hh[d] = sum_s h_prev[s]^T @ dgates[s] depends on
+//    nothing in the chain. It is an [H, (T-1)*B]^T x [(T-1)*B, 4H] product a
+//    direction, tiled 64 x 64 over the output (128 blocks at H=256), staged
+//    through shared memory, an 8 x 8 register tile a thread with a stage's
+//    (s, b) pairs split over four thread groups, f32 sums in a fixed order
+//    (no atomics), h_prev read from `out` shifted by one step and both
+//    operands rounded to WT on load.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -60,215 +77,484 @@ namespace {
 
 using namespace svtsg;
 
-constexpr int kUnits = 8;               // J: hidden units per block
-constexpr int kCols = 4 * kUnits;       // gate columns per block (a warp)
-constexpr int kThreads = 256;           // threads per block
-constexpr int kSplit = 4;               // threads per dh_prev dot product
-constexpr int kRowPad = 16;             // pad of a W_hh row: no bank conflicts
-constexpr unsigned kFull = 0xffffffffu;
+// Byte offsets of a block's shared-memory regions for R rows at width H
+// with xw, out and d_out in elements of x_bytes bytes.
+struct BwdLayout {
+    int w, h, part, xs, dout, cb, dg, dc, recv, total;
+    __host__ __device__ BwdLayout(int R, int H, int x_bytes) {
+        const int UB = H / kClusterBlocks, RU = align16(R * UB * 4);
+        w = 0;                                     // float4 [H][WS]
+        // h_prev = out[s-1]: staged as XT (bf16 in the upper half), then
+        // widened and rounded to WT in place as f32 [R][H]
+        h = w + H * w_stride(UB) * 16;
+        part = h + R * H * 4;                  // float4 [kSplits][kTile][UB]
+        xs = part + kSplits * kTile * UB * 16;     // XT [R][4][UB]: xw[s]
+        dout = align16(xs + R * 4 * UB * x_bytes); // XT [2][R][UB]: d_out[s]
+        cb = dout + 2 * RU;                        // f32 [3][R][UB]: c_seq
+        dg = cb + 3 * RU;          // float4 [R][UB]: gate inputs, then dgates
+        dc = dg + R * UB * 16;                     // f32 [R][UB]
+        recv = dc + RU;                            // f32 [2][8][R][UB]
+        total = recv + 2 * kClusterBlocks * RU;
+    }
+};
 
-// Rows of dgates staged at once for dh_prev: as many as the h_prev buffer
-// holds, at least one.
-__host__ __device__ inline int chunk_rows(int B, int H) {
-    const int rows = B * (H + 4) / (4 * H);
-    return rows < 1 ? 1 : (rows > B ? B : rows);
+// h_prev for the product, in place: n elements staged as XT at `src` become
+// f32 rounded to WT at dst[0..n). Where XT is bf16, src is the upper half of
+// dst, so a pass reads its elements into registers before any is written;
+// what a pass overwrites lies below what later passes read.
+template <typename XT, typename WT>
+__device__ __forceinline__ void widen_in_place(float* dst, const XT* src,
+                                               int n) {
+    if constexpr (sizeof(XT) == 4) {
+        if constexpr (sizeof(WT) != 4) {
+            for (int e = threadIdx.x; e < n; e += blockDim.x)
+                dst[e] = round_to<WT>(dst[e]);
+            __syncthreads();
+        }
+    } else {
+        constexpr int kPer = 16;  // elements a thread holds a pass
+        for (int base = 0; base < n; base += kPer * blockDim.x) {
+            float v[kPer];
+#pragma unroll
+            for (int i = 0; i < kPer; ++i) {
+                const int e = base + i * blockDim.x + threadIdx.x;
+                v[i] = e < n ? round_to<WT>(to_f32(src[e])) : 0.f;
+            }
+            __syncthreads();
+#pragma unroll
+            for (int i = 0; i < kPer; ++i) {
+                const int e = base + i * blockDim.x + threadIdx.x;
+                if (e < n) dst[e] = v[i];
+            }
+        }
+        __syncthreads();
+    }
 }
 
-// Floats of the buffer that holds h_prev [B][H+4], then dgates rows [r][4H].
-__host__ __device__ inline int stage_floats(int B, int H) {
-    const int a = B * (H + 4), b = chunk_rows(B, H) * 4 * H;
-    return a > b ? a : b;
+// Partial dh_prev of RT rows: thread k forms sum over this block's 4*UB
+// gate columns of dgates[row][col] * W_hh[k][col] and writes it to the
+// block that owns unit k, into recv[this block's rank][row][k % UB].
+template <int RT>
+__device__ __forceinline__ void dh_product(const float4* __restrict__ w_s,
+                                           const float4* __restrict__ dg,
+                                           float* recv_next, int rank, int r0,
+                                           int rows, int R, int H, int UB) {
+    const int WS = w_stride(UB);
+    for (int k = threadIdx.x; k < H; k += blockDim.x) {
+        float acc[RT];
+#pragma unroll
+        for (int r = 0; r < RT; ++r) acc[r] = 0.f;
+        const float4* wk = w_s + k * WS;
+        const float4* dgr[RT];  // rows past the slice repeat the last one
+#pragma unroll
+        for (int r = 0; r < RT; ++r) dgr[r] = dg + min(r, rows - 1) * UB;
+#pragma unroll 4
+        for (int u = 0; u < UB; ++u) {
+            const float4 wv = wk[u];
+#pragma unroll
+            for (int r = 0; r < RT; ++r) {
+                const float4 g = dgr[r][u];
+                acc[r] = fmaf(g.x, wv.x, acc[r]);
+                acc[r] = fmaf(g.y, wv.y, acc[r]);
+                acc[r] = fmaf(g.z, wv.z, acc[r]);
+                acc[r] = fmaf(g.w, wv.w, acc[r]);
+            }
+        }
+        float* dst = remote_shared(recv_next, k / UB)
+                     + ((size_t)rank * R + r0) * UB + k % UB;
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+            if (r < rows) dst[r * UB] = acc[r];
+    }
 }
 
-template <int L, typename XT, typename WT>
-__global__ void __launch_bounds__(kThreads)
+// The same partial with the thread's W values in registers, for the width
+// H = kSplits * KW = kThreads. Thread (kq, us) owns the four units
+// k = 4 kq .. 4 kq + 3 and an us-th quarter of this block's units u (KW / 4
+// of them): w[j * 4 + i] is the float4 (i, f, g, o) of W_hh[4 kq + i][unit
+// us * KW / 4 + j], loaded once for the whole run, so one broadcast float4
+// of dgates feeds 16 multiply-adds and the step loads nothing else from
+// shared memory. The four quarters' sums meet in `part` ([4][RT][H]
+// floats), and thread k adds them in a fixed order and writes the result to
+// the block that owns unit k.
+template <int RT, int KW>
+__device__ __forceinline__ void dh_product_reg(const float4 (&w)[KW],
+                                               const float4* __restrict__ dg,
+                                               float* __restrict__ part,
+                                               float* recv_next, int rank,
+                                               int r0, int rows, int R) {
+    constexpr int H = kSplits * KW, UB = KW, UJ = KW / 4, kQuads = H / 4;
+    static_assert(H == kThreads && KW % 4 == 0, "one thread a unit k");
+    const int kq = threadIdx.x % kQuads, us = threadIdx.x / kQuads;
+    float acc[RT][4];
+    const float4* dgr[RT];  // rows past the slice repeat the last one
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+        dgr[r] = dg + min(r, rows - 1) * UB + us * UJ;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < UJ; ++j) {
+#pragma unroll
+        for (int r = 0; r < RT; ++r) {
+            const float4 g = dgr[r][j];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const float4 wv = w[j * 4 + i];
+                acc[r][i] = fmaf(g.x, wv.x, acc[r][i]);
+                acc[r][i] = fmaf(g.y, wv.y, acc[r][i]);
+                acc[r][i] = fmaf(g.z, wv.z, acc[r][i]);
+                acc[r][i] = fmaf(g.w, wv.w, acc[r][i]);
+            }
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+        *reinterpret_cast<float4*>(part + (us * RT + r) * H + 4 * kq) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    __syncthreads();
+    const int k = threadIdx.x;
+    float* dst = remote_shared(recv_next, k / UB)
+                 + ((size_t)rank * R + r0) * UB + k % UB;
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+        if (r < rows) {
+            float v = part[r * H + k];
+#pragma unroll
+            for (int q = 1; q < 4; ++q) v += part[(q * RT + r) * H + k];
+            dst[r * UB] = v;
+        }
+    }
+    __syncthreads();  // part is used again
+}
+
+// KW > 0 is the kernel for H = kSplits * KW with the W values of the dh_prev
+// product in registers, KW = 0 the kernel for any H.
+template <int L, typename XT, typename WT, int KW>
+__global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_kernel(const XT* __restrict__ xw, const WT* __restrict__ w_hh,
                 const XT* __restrict__ out, const float* __restrict__ c_seq,
                 const XT* __restrict__ d_out, const float* __restrict__ d_hT,
-                const float* __restrict__ d_cT, float* d_xw,
-                float* __restrict__ d_w_hh, unsigned int* barrier,
-                int T, int B, int H, int b0, int BS, int accumulate) {
+                const float* __restrict__ d_cT, float* __restrict__ d_xw,
+                int T, int B, int H, int n_slices) {
     extern __shared__ float4 smem4[];
-    const int slices = H / kUnits;
-    const int d = blockIdx.x / slices;                 // direction
-    const int u0 = (blockIdx.x % slices) * kUnits;     // first unit
-    const int H4 = 4 * H, H_4 = H / 4;
-    const int HP = H + 4;            // padded h row: 16-byte aligned
-    const int WR = H4 + kRowPad;     // padded W_hh row
+    char* smem = reinterpret_cast<char*>(smem4);
+    const int rank = cluster_rank();
+    const int cid = blockIdx.x / kClusterBlocks;
+    const int d = cid % 2;                       // direction
+    int b0, R;                                   // this cluster's rows
+    slice_rows(B, n_slices, cid / 2, b0, R);
+    const int UB = H / kClusterBlocks, u0 = rank * UB;  // this block's units
     const int tid = threadIdx.x;
 
-    float4* w_s = smem4;                                         // [H][J]
-    float* w_row = reinterpret_cast<float*>(smem4 + H * kUnits); // [J][WR]
-    float* dw_s = w_row + kUnits * WR;                           // [H][kCols]
-    float* h_s = dw_s + H * kCols;               // [B][HP], then [r][4H]
-    float* dg_s = h_s + stage_floats(B, H);                      // [B][kCols]
-    float* dc_s = dg_s + B * kCols;                              // [B][J]
-    float* dh_s = dc_s + B * kUnits;                             // [B][J]
+    const BwdLayout lay(R, H, sizeof(XT));
+    const int RU = align16(R * UB * 4) / 4;  // floats of an [R][UB] region
+    float4* w_s = reinterpret_cast<float4*>(smem + lay.w);
+    float* h_s = reinterpret_cast<float*>(smem + lay.h);
+    float4* part = reinterpret_cast<float4*>(smem + lay.part);
+    // where out[s-1] lands: over h_s, in its upper half when XT is bf16
+    XT* hx = reinterpret_cast<XT*>(smem + lay.h) + (sizeof(XT) == 4 ? 0 : R * H);
+    XT* xs = reinterpret_cast<XT*>(smem + lay.xs);
+    char* dout_s = smem + lay.dout;
+    float* cb = reinterpret_cast<float*>(smem + lay.cb);
+    // a step's gate pre-activations, which its dgates then replace
+    float4* dg = reinterpret_cast<float4*>(smem + lay.dg);
+    float* dc_s = reinterpret_cast<float*>(smem + lay.dc);
+    float* recv = reinterpret_cast<float*>(smem + lay.recv);
+    const bool vec = (UB * sizeof(XT)) % 16 == 0;
 
-    // W_hh[d][k][g*H + u0 + u] for g = i, f, g, o -> one float4 per (k, u)
-    const WT* w = w_hh + (size_t)d * H * H4;
-    for (int e = tid; e < H * kUnits; e += blockDim.x) {
-        const int k = e / kUnits, u = e % kUnits;
-        const WT* row = w + (size_t)k * H4 + u0 + u;
-        w_s[e] = make_float4(to_f32(row[0]), to_f32(row[H]),
-                             to_f32(row[2 * H]), to_f32(row[3 * H]));
+    float4 w_d[KW > 0 ? KW : 1];  // the dh_prev product's (dh_product_reg)
+    if constexpr (KW > 0) {
+        const int kq = tid % (H / 4), us = tid / (H / 4);
+        const WT* base = w_hh + ((size_t)d * H + 4 * kq) * 4 * H + u0
+                         + us * (KW / 4);
+#pragma unroll
+        for (int e = 0; e < KW; ++e) {
+            const WT* row = base + (size_t)(e % 4) * 4 * H + e / 4;
+            w_d[e] = make_float4(to_f32(row[0]), to_f32(row[H]),
+                                 to_f32(row[2 * H]), to_f32(row[3 * H]));
+        }
     }
-    for (int e = tid; e < kUnits * H4; e += blockDim.x) {
-        const int u = e / H4, col = e % H4;
-        w_row[u * WR + col] = to_f32(w[(size_t)(u0 + u) * H4 + col]);
-    }
-    for (int e = tid; e < H * kCols; e += blockDim.x) dw_s[e] = 0.0f;
-    for (int e = tid; e < B * kUnits; e += blockDim.x) {
-        const size_t g =
-            ((size_t)d * BS + b0 + e / kUnits) * H + u0 + e % kUnits;
-        dc_s[e] = d_cT[g];
-        dh_s[e] = d_hT[g];
-    }
-    __syncthreads();
 
-    const int warp = tid / 32, lane = tid % 32, warps = blockDim.x / 32;
-    const int rows_per_chunk = chunk_rows(B, H);
+    auto dout_at = [&](int s) {
+        return reinterpret_cast<XT*>(dout_s + (s & 1) * RU * 4);
+    };
+    auto c_at = [&](int s) { return cb + (s % 3) * RU; };
+    auto stage_c = [&](int s) {  // c_seq[s], this block's units
+        stage_segments(c_at(s), R, UB, vec, [&](int i) {
+            return c_seq + (((size_t)s * 2 + d) * B + b0 + i) * H + u0;
+        });
+    };
+    // What step s needs from device memory: xw[s] and d_out[s] of this
+    // block's units, and for s > 0 h_prev = out[s-1] (all H) and c_seq[s-1].
+    auto stage = [&](int s) {
+        if (s >= 0) {
+            stage_segments(xs, R * 4, UB, vec, [&](int i) {
+                return xw + xw_row<L>(s, d, b0 + i / 4, T, B, H) + (i % 4) * H + u0;
+            });
+            stage_segments(dout_at(s), R, UB, vec, [&](int i) {
+                return d_out + out_row<L>(s, d, b0 + i, T, B, H) + u0;
+            });
+        }
+        if (s > 0) {
+            stage_segments(hx, R, H, vec, [&](int i) {
+                return out + out_row<L>(s - 1, d, b0 + i, T, B, H);
+            });
+            stage_c(s - 1);
+        }
+        cp_async_commit();
+    };
+    // The gate pre-activations of step s into `dg`, from what stage(s)
+    // brought: xw[s] + round_WT(h_prev) @ W_hh (h_prev is zero at s = 0).
+    auto recompute = [&](int s) {
+        if (s > 0) widen_in_place<XT, WT>(h_s, hx, R * H);
+        for (int r0 = 0; r0 < R; r0 += kTile) {
+            const int rows = min(kTile, R - r0), rt = tile_rows(rows);
+            if (s > 0) {
+                gate_product_rows(w_s, h_s + r0 * H, part, rows, UB, H);
+                __syncthreads();
+            }
+            for (int p = tid; p < rows * UB; p += blockDim.x) {
+                const int tr = p / UB, u = p % UB, r = r0 + tr;
+                float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (s > 0) a = gate_sum(part, rt, tr, u, UB);
+                const XT* x = xs + r * 4 * UB + u;
+                dg[r * UB + u] =
+                    make_float4(to_f32(x[0]) + a.x, to_f32(x[UB]) + a.y,
+                                to_f32(x[2 * UB]) + a.z, to_f32(x[3 * UB]) + a.w);
+            }
+            __syncthreads();
+        }
+    };
+
+    stage_c(T - 1);
+    stage(T - 1);
+    load_w_slice(w_s, w_hh + (size_t)d * H * 4 * H, H, UB, u0);
+    for (int e = tid; e < R * UB; e += blockDim.x)
+        dc_s[e] = d_cT[((size_t)d * B + b0 + e / UB) * H + u0 + e % UB];
+    cp_async_wait<0>();  // stage(T-1) and c_seq[T-1] have landed
+    cluster_sync();  // every block runs before any writes into another
+    recompute(T - 1);
+    stage(T - 2);
+
     for (int m = 0; m < T; ++m) {
         const int s = T - 1 - m;
-        // stage h_prev of this direction (zero at the first step), cast to
-        // WT as the products take it
-        if (s > 0) {
-            for (int e = tid; e < B * H_4; e += blockDim.x) {
-                const int b = e / H_4, k4 = e % H_4;
-                const XT* src = out + out_row<L>(s - 1, d, b0 + b, T, BS, H);
-                *reinterpret_cast<float4*>(h_s + b * HP + 4 * k4) =
-                    round_to<WT>(load4(src + 4 * k4));
+        // the chain: dh and dc -> the four dgates of this block's units
+        const float* recv_cur = recv + (m & 1) * kClusterBlocks * RU;
+        const XT* dout_cur = dout_at(s);
+        const float* c_now = c_at(s);
+        const float* c_before = c_at(s - 1 + 3);
+        for (int p = tid; p < R * UB; p += blockDim.x) {
+            const int r = p / UB, u = p % UB;
+            const int row = b0 + r, unit = u0 + u;
+            const float4 a = dg[p];
+            const float gi = sigmoid(a.x), gf = sigmoid(a.y);
+            const float gg = tanhf(a.z), go = sigmoid(a.w);
+            const float c_t = c_now[p];
+            const float c_p = s > 0 ? c_before[p] : 0.0f;
+            float dh_in;
+            if (m == 0) {
+                dh_in = d_hT[((size_t)d * B + row) * H + unit];
+            } else {
+                dh_in = recv_cur[p];
+                for (int j = 1; j < kClusterBlocks; ++j)
+                    dh_in += recv_cur[j * R * UB + p];
             }
-        } else {
-            for (int e = tid; e < B * HP; e += blockDim.x) h_s[e] = 0.0f;
-        }
-        __syncthreads();
-
-        const float* c_now = c_seq + ((size_t)s * 2 + d) * BS * H;
-        const float* c_before =
-            s > 0 ? c_seq + ((size_t)(s - 1) * 2 + d) * BS * H : nullptr;
-        for (int p = tid; p < B * kUnits; p += blockDim.x) {
-            const int b = p / kUnits, u = p % kUnits, unit = u0 + u;
-            const int row = b0 + b;
-            const float4* h_row = reinterpret_cast<const float4*>(h_s + b * HP);
-            float ai = 0.f, af = 0.f, ag = 0.f, ao = 0.f;
-            for (int k4 = 0; k4 < H_4; ++k4) {
-                const float4 hv = h_row[k4];
-                const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    const float4 wv = w_s[(4 * k4 + q) * kUnits + u];
-                    ai = fmaf(hk[q], wv.x, ai);
-                    af = fmaf(hk[q], wv.y, af);
-                    ag = fmaf(hk[q], wv.z, ag);
-                    ao = fmaf(hk[q], wv.w, ao);
-                }
-            }
-            const size_t xr = xw_row<L>(s, d, row, T, BS, H) + unit;
-            const XT* x = xw + xr;
-            const float gi = sigmoid(to_f32(x[0]) + ai);
-            const float gf = sigmoid(to_f32(x[H]) + af);
-            const float gg = tanhf(to_f32(x[2 * H]) + ag);
-            const float go = sigmoid(to_f32(x[3 * H]) + ao);
-            const size_t bu = (size_t)row * H + unit;
-            const float c_t = c_now[bu];
-            const float c_p = c_before != nullptr ? c_before[bu] : 0.0f;
-
-            const float dh =
-                dh_s[p] + to_f32(d_out[out_row<L>(s, d, row, T, BS, H) + unit]);
+            const float dh = dh_in + to_f32(dout_cur[p]);
             const float tc = tanhf(c_t);
             const float dc = dc_s[p] + dh * go * (1.0f - tc * tc);
             const float dgi = dc * gg * gi * (1.0f - gi);
             const float dgf = dc * c_p * gf * (1.0f - gf);
             const float dgg = dc * gi * (1.0f - gg * gg);
             const float dgo = dh * tc * go * (1.0f - go);
-            float* dst = d_xw + xr;
+            float* dst = d_xw + xw_row<L>(s, d, row, T, B, H) + unit;
             dst[0] = dgi;
             dst[H] = dgf;
             dst[2 * H] = dgg;
             dst[3 * H] = dgo;
-            float* dg = dg_s + b * kCols + u;
-            dg[0] = round_to<WT>(dgi);
-            dg[kUnits] = round_to<WT>(dgf);
-            dg[2 * kUnits] = round_to<WT>(dgg);
-            dg[3 * kUnits] = round_to<WT>(dgo);
+            dg[p] = make_float4(round_to<WT>(dgi), round_to<WT>(dgf),
+                                round_to<WT>(dgg), round_to<WT>(dgo));
             dc_s[p] = dc * gf;
         }
+        if (s == 0) break;  // the first step's dh_prev is never used
         __syncthreads();
-
-        // d_w_hh[:, own columns] += h_prev^T @ dgates (h_prev is 0 at s = 0).
-        // A warp takes four rows k at a time, lane = local column.
-        if (s > 0) {
-            for (int k4 = warp; k4 < H_4; k4 += warps) {
-                float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-                for (int b = 0; b < B; ++b) {
-                    const float4 hv =
-                        *reinterpret_cast<const float4*>(h_s + b * HP + 4 * k4);
-                    const float g = dg_s[b * kCols + lane];
-                    a0 = fmaf(hv.x, g, a0);
-                    a1 = fmaf(hv.y, g, a1);
-                    a2 = fmaf(hv.z, g, a2);
-                    a3 = fmaf(hv.w, g, a3);
-                }
-                float* dst = dw_s + 4 * k4 * kCols + lane;
-                dst[0] += a0;
-                dst[kCols] += a1;
-                dst[2 * kCols] += a2;
-                dst[3 * kCols] += a3;
+        float* recv_next = recv + ((m + 1) & 1) * kClusterBlocks * RU;
+        for (int r0 = 0; r0 < R; r0 += kTile) {
+            const int rows = min(kTile, R - r0);
+            float* part_f = reinterpret_cast<float*>(part);
+            if constexpr (KW > 0) {
+                if (tile_rows(rows) == kTile)
+                    dh_product_reg<kTile>(w_d, dg + r0 * UB, part_f, recv_next,
+                                          rank, r0, rows, R);
+                else
+                    dh_product_reg<kTile / 2>(w_d, dg + r0 * UB, part_f,
+                                              recv_next, rank, r0, rows, R);
+            } else if (tile_rows(rows) == kTile) {
+                dh_product<kTile>(w_s, dg + r0 * UB, recv_next, rank, r0, rows,
+                                  R, H, UB);
+            } else {
+                dh_product<kTile / 2>(w_s, dg + r0 * UB, recv_next, rank, r0,
+                                      rows, R, H, UB);
             }
         }
-        if (m + 1 == T) break;  // the first step's dh_prev is never used
-        grid_barrier(barrier, (unsigned int)(m + 1) * gridDim.x);
-
-        // dh_prev[b][u] = sum_col dgates[b][col] * W_hh[d][u0 + u][col] over
-        // all 4H columns of the step, read back from d_xw through L2 and
-        // cast to WT
-        for (int bc = 0; bc < B; bc += rows_per_chunk) {
-            const int rows = min(rows_per_chunk, B - bc);
-            float4* stage = reinterpret_cast<float4*>(h_s);
-            for (int e = tid; e < rows * H; e += blockDim.x) {
-                const int r = e / H, c4 = e % H;
-                const float* src = d_xw + xw_row<L>(s, d, b0 + bc + r, T, BS, H);
-                stage[e] = round_to<WT>(
-                    __ldcg(reinterpret_cast<const float4*>(src) + c4));
-            }
-            __syncthreads();
-            // kSplit neighbouring threads share one (row, unit) dot product;
-            // rows * J * kSplit is a multiple of 32, so whole warps iterate
-            for (int q = tid; q < rows * kUnits * kSplit; q += blockDim.x) {
-                const int part = q % kSplit, pr = q / kSplit;
-                const int r = pr / kUnits, u = pr % kUnits;
-                const float4* gr = stage + r * H;
-                const float4* wr = reinterpret_cast<const float4*>(w_row + u * WR);
-                float acc = 0.f;
-                for (int c4 = part; c4 < H; c4 += kSplit) {
-                    const float4 g = gr[c4], wv = wr[c4];
-                    acc = fmaf(g.x, wv.x, acc);
-                    acc = fmaf(g.y, wv.y, acc);
-                    acc = fmaf(g.z, wv.z, acc);
-                    acc = fmaf(g.w, wv.w, acc);
-                }
-                acc += __shfl_xor_sync(kFull, acc, 1);
-                acc += __shfl_xor_sync(kFull, acc, 2);
-                if (part == 0) dh_s[(bc + r) * kUnits + u] = acc;
-            }
-            __syncthreads();
-        }
+        cluster_arrive();
+        // off the chain, while the partials travel: the next step's gates,
+        // then the fetch of what the step after it needs
+        cp_async_wait<0>();  // stage(s-1) has landed
+        __syncthreads();
+        recompute(s - 1);
+        stage(s - 2);
+        cluster_wait();
     }
-
-    for (int e = tid; e < H * kCols; e += blockDim.x) {
-        const int k = e / kCols, lc = e % kCols;
-        const int q = lc / kUnits, u = lc % kUnits;
-        float* dst = d_w_hh + ((size_t)d * H + k) * H4 + q * H + u0 + u;
-        *dst = accumulate ? *dst + dw_s[e] : dw_s[e];
-    }
+    cluster_sync();  // no block leaves while another may still write into it
 }
 
-int smem_bytes(int B, int H) {
-    const int floats = H * kUnits * 4 + kUnits * (4 * H + kRowPad)
-                       + H * kCols + stage_floats(B, H) + B * kCols
-                       + 2 * B * kUnits;
-    return floats * 4;
+// d_w_hh[d] = sum over steps s >= 1 and batch rows b of
+//   round_WT(out[s-1, d, b, :])^T (x) round_WT(d_xw[s, d, b, :]).
+// One block a 64 x 64 tile of one direction's [H, 4H] output; the (s, b)
+// pairs are walked 32 at a time through two buffers of shared memory, the
+// next 32 loaded into registers and stored to the other buffer while the
+// current ones are multiplied: one __syncthreads a stage. The block's four
+// groups of 64 threads take eight pairs of a stage each, a thread 8 x 8
+// outputs of its group's partial tile (16 multiply-adds a 16-byte load from
+// shared memory), and the four partial tiles are summed at the end in a
+// fixed order, so that the result is the same from run to run.
+constexpr int kWgTile = 64;    // output tile edge
+constexpr int kWgDepth = 32;   // (s, b) pairs a stage
+constexpr int kWgGroups = 4;   // thread groups that split a stage's pairs
+constexpr int kWgGroupThreads = kThreads / kWgGroups;
+static_assert(kWgGroupThreads * 64 == kWgTile * kWgTile,
+              "a group's threads cover the tile with 8 x 8 outputs each");
+
+template <int L, typename XT, typename WT>
+__global__ void __launch_bounds__(kThreads)
+lstm_weight_grad_kernel(const XT* __restrict__ out,
+                        const float* __restrict__ d_xw,
+                        float* __restrict__ d_w_hh, int T, int B, int H) {
+    // h_prev [buffer][pair][k] and dgates [buffer][pair][col]
+    __shared__ __align__(16) float a_s[2][kWgDepth][kWgTile];
+    __shared__ __align__(16) float b_s[2][kWgDepth][kWgTile];
+    // after the loop a_s holds one group's partial tile
+    static_assert(2 * kWgDepth == kWgTile, "a_s holds a tile");
+    float (*part)[kWgTile] =
+        reinterpret_cast<float (*)[kWgTile]>(&a_s[0][0][0]);
+    const int H4 = 4 * H;
+    const int d = blockIdx.z;
+    const int k0 = blockIdx.y * kWgTile, c0 = blockIdx.x * kWgTile;
+    const int tid = threadIdx.x;
+    const int grp = tid / kWgGroupThreads, t = tid % kWgGroupThreads;
+    // 8 x 8 outputs: rows 4ty + {0..3} and 32 + 4ty + {0..3}, columns the
+    // same with tx, so that a quarter warp reads 128 contiguous bytes
+    const int ty = t / 8, tx = t % 8;
+    // this thread's loads: pairs lp and lp + 16 of a stage, 4 values at lq
+    const int lp = tid / 16, lq = (tid % 16) * 4;
+    const int pairs = (T - 1) * B;
+
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+    // the loads stay raw in registers while a stage is multiplied; they are
+    // widened and rounded to WT on their way into shared memory
+    auto load = [&](int base, Raw4<XT>* av, Raw4<float>* bv) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            const int pair = base + lp + 16 * u;
+            av[u] = Raw4<XT>{};
+            bv[u] = Raw4<float>{};
+            if (pair < pairs) {
+                const int s = 1 + pair / B, b = pair % B;
+                if (k0 + lq < H)
+                    av[u] = load_raw4(
+                        out + out_row<L>(s - 1, d, b, T, B, H) + k0 + lq);
+                if (c0 + lq < H4)
+                    bv[u] = load_raw4(
+                        d_xw + xw_row<L>(s, d, b, T, B, H) + c0 + lq);
+            }
+        }
+    };
+    auto store = [&](int buf, const Raw4<XT>* av, const Raw4<float>* bv) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            *reinterpret_cast<float4*>(&a_s[buf][lp + 16 * u][lq]) =
+                round_to<WT>(widen4(av[u]));
+            *reinterpret_cast<float4*>(&b_s[buf][lp + 16 * u][lq]) =
+                round_to<WT>(widen4(bv[u]));
+        }
+    };
+    Raw4<XT> av[2];
+    Raw4<float> bv[2];
+    load(0, av, bv);
+    store(0, av, bv);
+    __syncthreads();
+    for (int base = 0, cur = 0; base < pairs; base += kWgDepth, cur ^= 1) {
+        const bool more = base + kWgDepth < pairs;
+        if (more) load(base + kWgDepth, av, bv);
+#pragma unroll
+        for (int pp = 0; pp < kWgDepth / kWgGroups; ++pp) {
+            const int p = grp * (kWgDepth / kWgGroups) + pp;
+            const float* ar = a_s[cur][p];
+            const float* br = b_s[cur][p];
+            const float4 a0 = *reinterpret_cast<const float4*>(ar + 4 * ty);
+            const float4 a1 = *reinterpret_cast<const float4*>(ar + 32 + 4 * ty);
+            const float4 b0 = *reinterpret_cast<const float4*>(br + 4 * tx);
+            const float4 b1 = *reinterpret_cast<const float4*>(br + 32 + 4 * tx);
+            const float ak[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+            const float bk[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+                    acc[i][j] = fmaf(ak[i], bk[j], acc[i][j]);
+        }
+        // the other buffer was last read before the previous stage's barrier
+        if (more) store(cur ^ 1, av, bv);
+        __syncthreads();
+    }
+    // groups 1, 2, 3 hand their partial tiles to group 0, one after another
+    for (int g = 1; g < kWgGroups; ++g) {
+        if (grp == g) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                float* row = part[(i < 4 ? 0 : 28) + 4 * ty + i];
+                *reinterpret_cast<float4*>(row + 4 * tx) =
+                    make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+                *reinterpret_cast<float4*>(row + 32 + 4 * tx) =
+                    make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+            }
+        }
+        __syncthreads();
+        if (grp == 0) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+                const float* row = part[(i < 4 ? 0 : 28) + 4 * ty + i];
+                const float4 lo = *reinterpret_cast<const float4*>(row + 4 * tx);
+                const float4 hi =
+                    *reinterpret_cast<const float4*>(row + 32 + 4 * tx);
+                acc[i][0] += lo.x; acc[i][1] += lo.y;
+                acc[i][2] += lo.z; acc[i][3] += lo.w;
+                acc[i][4] += hi.x; acc[i][5] += hi.y;
+                acc[i][6] += hi.z; acc[i][7] += hi.w;
+            }
+        }
+        __syncthreads();
+    }
+    if (grp != 0) return;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+        const int k = k0 + (i < 4 ? 0 : 28) + 4 * ty + i;
+        if (k >= H) continue;
+        float* row = d_w_hh + ((size_t)d * H + k) * H4 + c0;
+        if (c0 + 4 * tx < H4)
+            *reinterpret_cast<float4*>(row + 4 * tx) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        if (c0 + 32 + 4 * tx < H4)
+            *reinterpret_cast<float4*>(row + 32 + 4 * tx) =
+                make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
 }
 
 struct BwdArgs {
@@ -281,76 +567,124 @@ struct BwdArgs {
     const float* d_cT;
     float* d_xw;
     float* d_w_hh;
-    unsigned int* barrier;
-    int T, B, H, b0, BS, accumulate;
+    int T, B, H, n_slices;
 };
 
+int max_rows(int H, int smem_limit, int x_bytes) {
+    int R = 0;
+    while (BwdLayout(R + 1, H, x_bytes).total <= smem_limit) ++R;
+    return R;
+}
+
+template <int L, typename XT, typename WT>
+cudaError_t launch_weight_grad(const void* out, const float* d_xw,
+                               float* d_w_hh, int T, int B, int H,
+                               cudaStream_t st) {
+    const dim3 grid((4 * H + kWgTile - 1) / kWgTile,
+                    (H + kWgTile - 1) / kWgTile, 2);
+    lstm_weight_grad_kernel<L, XT, WT><<<grid, kThreads, 0, st>>>(
+        static_cast<const XT*>(out), d_xw, d_w_hh, T, B, H);
+    return cudaGetLastError();
+}
+
+// The recurrence, then (with a d_w_hh to fill) the weight gradient.
 template <int L, typename XT, typename WT>
 cudaError_t launch(BwdArgs a, cudaStream_t st) {
-    auto kernel = lstm_bwd_kernel<L, XT, WT>;
-    const int smem = smem_bytes(a.B, a.H);
+    auto kernel = a.H == kRegH ? lstm_bwd_kernel<L, XT, WT, kRegK>
+                               : lstm_bwd_kernel<L, XT, WT, 0>;
+    if (a.n_slices < 1 || a.n_slices > a.B || a.H % kClusterBlocks)
+        return cudaErrorInvalidValue;
+    const int rows = (a.B + a.n_slices - 1) / a.n_slices;
+    const int smem = BwdLayout(rows, a.H, sizeof(XT)).total;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    err = cudaMemsetAsync(a.barrier, 0, sizeof(unsigned int), st);
+    ClusterLaunch cl(a.n_slices, smem, st);
+    err = cudaLaunchKernelEx(
+        &cl.cfg, kernel, static_cast<const XT*>(a.xw),
+        static_cast<const WT*>(a.w_hh), static_cast<const XT*>(a.out), a.c_seq,
+        static_cast<const XT*>(a.d_out), a.d_hT, a.d_cT, a.d_xw, a.T, a.B, a.H,
+        a.n_slices);
     if (err != cudaSuccess) return err;
-    const XT* xw = static_cast<const XT*>(a.xw);
-    const WT* w_hh = static_cast<const WT*>(a.w_hh);
-    const XT* out = static_cast<const XT*>(a.out);
-    const XT* d_out = static_cast<const XT*>(a.d_out);
-    void* args[] = {(void*)&xw, (void*)&w_hh, (void*)&out, (void*)&a.c_seq,
-                    (void*)&d_out, (void*)&a.d_hT, (void*)&a.d_cT,
-                    (void*)&a.d_xw, (void*)&a.d_w_hh, (void*)&a.barrier,
-                    (void*)&a.T, (void*)&a.B, (void*)&a.H, (void*)&a.b0,
-                    (void*)&a.BS, (void*)&a.accumulate};
-    const dim3 grid(2 * a.H / kUnits), block(kThreads);
-    err = cudaLaunchCooperativeKernel((const void*)kernel, grid, block, args,
-                                      smem, st);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    return cudaGetLastError();
+    return launch_weight_grad<L, XT, WT>(a.out, a.d_xw, a.d_w_hh, a.T, a.B,
+                                         a.H, st);
+}
+
+// Calls f.template operator()<L, XT, WT>() for the codes, or reports them
+// invalid: the flat layout is f32 only.
+template <typename F>
+cudaError_t dispatch(int layout, int x_dtype, int w_dtype, F f) {
+    if (layout == kFlat && x_dtype == kF32 && w_dtype == kF32)
+        return f(std::integral_constant<int, kFlat>{}, float{}, float{});
+    if (layout != kStacked) return cudaErrorInvalidValue;
+    std::integral_constant<int, kStacked> stacked;
+    if (x_dtype == kF32 && w_dtype == kF32) return f(stacked, float{}, float{});
+    if (x_dtype == kF32 && w_dtype == kBF16) return f(stacked, float{}, bf16{});
+    if (x_dtype == kBF16 && w_dtype == kF32) return f(stacked, bf16{}, float{});
+    if (x_dtype == kBF16 && w_dtype == kBF16) return f(stacked, bf16{}, bf16{});
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The most rows one launch of the backward recurrence takes at width H
-// within smem_limit bytes of dynamic shared memory a block (0 when not even
-// one row fits).
-int svtsg_lstm_bwd_max_rows(int H, int smem_limit) {
-    int B = 0;
-    while (smem_bytes(B + 1, H) <= smem_limit) ++B;
-    return B;
+// The most rows one cluster of the backward recurrence holds at width H,
+// with xw, out and d_out in elements of x_bytes bytes, within smem_limit
+// bytes of dynamic shared memory a block (0 when not even one row fits).
+int svtsg_lstm_bwd_max_rows(int H, int smem_limit, int x_bytes) {
+    return max_rows(H, smem_limit, x_bytes);
 }
 
-// Launch the backward recurrence on `stream` over rows [b0, b0 + B) of a
-// batch of BS rows. layout: kFlat (f32 only: K4) or kStacked (K6c);
-// xw_dtype (xw, out, d_out) / w_dtype: kF32 or kBF16. accumulate != 0 adds
-// this launch's d_w_hh to d_w_hh's contents. barrier is one 32-bit word of
-// scratch from the caller. Returns the CUDA error code (0 on success).
+// As svtsg_lstm_active_clusters, for the backward recurrence.
+int svtsg_lstm_bwd_active_clusters(int H, int rows, int x_bytes, int device) {
+    const int smem = BwdLayout(rows, H, x_bytes).total;
+    if (x_bytes == sizeof(float))
+        return active_clusters(
+            H == kRegH ? lstm_bwd_kernel<kFlat, float, float, kRegK>
+                       : lstm_bwd_kernel<kFlat, float, float, 0>,
+            smem, device);
+    return active_clusters(
+        H == kRegH ? lstm_bwd_kernel<kStacked, bf16, float, kRegK>
+                   : lstm_bwd_kernel<kStacked, bf16, float, 0>,
+        smem, device);
+}
+
+// Launch the backward recurrence and then the weight gradient on `stream`,
+// over a batch of B rows cut into n_slices near-equal row slices, one
+// cluster a (direction, slice). layout: kFlat (f32 only: K4) or kStacked
+// (K6c); xw_dtype (xw, out, d_out) / w_dtype: kF32 or kBF16. Returns the
+// CUDA error code (0 on success).
 int svtsg_lstm_bwd(const void* xw, const void* w_hh, const void* out,
                    const float* c_seq, const void* d_out, const float* d_hT,
-                   const float* d_cT, float* d_xw, float* d_w_hh,
-                   unsigned int* barrier, int T, int B, int H, int b0, int BS,
-                   int accumulate, int layout, int xw_dtype, int w_dtype,
+                   const float* d_cT, float* d_xw, float* d_w_hh, int T, int B,
+                   int H, int n_slices, int layout, int xw_dtype, int w_dtype,
                    int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const BwdArgs a{xw, w_hh, out, c_seq, d_out, d_hT, d_cT, d_xw, d_w_hh,
-                    barrier, T, B, H, b0, BS, accumulate};
-    if (layout == kFlat && xw_dtype == kF32 && w_dtype == kF32)
-        return launch<kFlat, float, float>(a, st);
-    if (layout != kStacked) return cudaErrorInvalidValue;
-    if (xw_dtype == kF32 && w_dtype == kF32)
-        return launch<kStacked, float, float>(a, st);
-    if (xw_dtype == kF32 && w_dtype == kBF16)
-        return launch<kStacked, float, bf16>(a, st);
-    if (xw_dtype == kBF16 && w_dtype == kF32)
-        return launch<kStacked, bf16, float>(a, st);
-    if (xw_dtype == kBF16 && w_dtype == kBF16)
-        return launch<kStacked, bf16, bf16>(a, st);
-    return cudaErrorInvalidValue;
+                    T, B, H, n_slices};
+    return dispatch(layout, xw_dtype, w_dtype, [&](auto l, auto x, auto w) {
+        return launch<decltype(l)::value, decltype(x), decltype(w)>(a, st);
+    });
+}
+
+// The weight gradient alone: d_w_hh [2, H, 4H] f32 from the forward's out
+// (type x_dtype) and the backward's d_xw (f32), both rounded to w_dtype on
+// load. Returns the CUDA error code (0 on success).
+int svtsg_lstm_weight_grad(const void* out, const float* d_xw, float* d_w_hh,
+                           int T, int B, int H, int layout, int x_dtype,
+                           int w_dtype, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return dispatch(layout, x_dtype, w_dtype, [&](auto l, auto x, auto w) {
+        return launch_weight_grad<decltype(l)::value, decltype(x), decltype(w)>(
+            out, d_xw, d_w_hh, T, B, H, st);
+    });
 }
 
 }  // extern "C"

@@ -19,18 +19,22 @@ over layout and dtypes) and ``csrc/lstm_bwd.cu`` (K4, K6c). Each
 with the kernels' rounding points, which the wrappers take for CPU tensors
 and the card's checks hold the kernels against.
 
-A kernel block keeps every batch row of its hidden units in shared memory,
-so a batch has a row cap (at H=256: 186 rows for the forward kernels, 108
-for the backward). A larger batch runs as several launches over near-equal
-row slices (:func:`_batch_chunks`), as the JAX ``BiLSTM`` runs one
-``pallas_call`` per chunk (``ops/rnn.py:159-222``): each launch reads and
-writes its rows in place, and the backward launches after the first add
-their ``d_w_hh`` to the first's. ``launches`` counts launches.
+The recurrence is independent across batch rows, so a batch of any size
+is one launch: the rows are cut into near-equal slices (:func:`_row_slices`)
+and each (direction, slice) is run by one thread-block cluster of 8 blocks
+that exchanges h (forward) or the dh_prev partials (backward) through
+distributed shared memory, with no barrier across the grid; clusters the
+card cannot hold at once queue. A cluster holds at most as many rows as
+its blocks' shared memory allows (at H=256 in f32: 59 forward, 11 backward), which
+bounds a slice, not the batch. The backward's weight gradient is a second
+kernel of the same launch group, outside the step loop, whose plain version
+is :func:`lstm_weight_grad_plain`. ``launches`` counts launches: one a call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -97,16 +101,31 @@ def _device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def _row_cap(name: str, max_rows_fn: str, H: int) -> int:
-    """The most batch rows one launch of a kernel takes at width H, from
-    the C side's shared-memory formula (``max_rows_fn``). Raises when not
-    even one row fits."""
-    cap = getattr(_kernels.library(), max_rows_fn)(H, _kernels.MAX_SMEM_BYTES)
+@functools.lru_cache(maxsize=None)
+def _cluster_plan(name: str, kernel: str, H: int, x_bytes: int,
+                  device: int) -> Tuple[int, int]:
+    """What the card ``device`` gives one recurrence kernel (``kernel``:
+    ``svtsg_lstm`` or ``svtsg_lstm_bwd``) at width H with activations of
+    ``x_bytes`` bytes, asked of the C side once: (the most batch rows one
+    cluster holds, from the shared-memory formula; the row slices a
+    direction that fill one wave, half the clusters the card holds at once
+    at that many rows, ``cudaOccupancyMaxActiveClusters``). Raises when not
+    even one row fits or the card holds no cluster."""
+    lib = _kernels.library()
+    cap = getattr(lib, f'{kernel}_max_rows')(H, _kernels.MAX_SMEM_BYTES,
+                                             x_bytes)
     if cap < 1:
         raise ValueError(f'{name}: at H={H} one batch row needs more shared '
                          f'memory than the {_kernels.MAX_SMEM_BYTES} bytes a '
                          'block may use')
-    return cap
+    clusters = getattr(lib, f'{kernel}_active_clusters')(H, cap, x_bytes,
+                                                         device)
+    if clusters < 0:
+        _kernels.check(-clusters, f'{name}: cudaOccupancyMaxActiveClusters')
+    if clusters < 1:
+        raise RuntimeError(f'{name}: the card holds no cluster of 8 blocks '
+                           f'at H={H}')
+    return cap, max(1, clusters // 2)
 
 
 def _batch_chunks(B: int, cap: int) -> List[Tuple[int, int]]:
@@ -124,15 +143,32 @@ def _batch_chunks(B: int, cap: int) -> List[Tuple[int, int]]:
     return ranges
 
 
+def _row_slices(B: int, cap: int, a_wave: int) -> List[Tuple[int, int]]:
+    """The row ranges [b0, b1) the clusters of one direction take: the
+    near-equal ranges of :func:`_batch_chunks` with at most ``cap`` rows
+    each, and no fewer than fill the card: a small batch is spread over
+    ``a_wave`` slices (or one a row), a large one over a multiple of that,
+    so that the last wave of clusters is as full as the others. ``a_wave``
+    is the slices a direction that the card runs at once (7 on an H100 SXM,
+    which holds 15 clusters: :func:`_cluster_plan`). The kernels receive
+    ``len()`` of it and derive the same ranges (``slice_rows`` in
+    ``csrc/common.cuh``)."""
+    if a_wave < 1:
+        raise ValueError(f'need a_wave >= 1, got {a_wave}')
+    n = len(_batch_chunks(B, cap))
+    n = min(B, -(-n // a_wave) * a_wave)
+    return _batch_chunks(B, -(-B // n))
+
+
 def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _launch_forward(name: str, xw: Tensor, w_hh: Tensor, layout: int,
                     with_c_seq: bool, gates_bf16: bool = False):
-    """Launches of ``csrc/lstm_scan.cu`` over the batch's row slices. K3
-    and K6b carry the c_seq residual, K1 and K6a do not. Returns (out,
-    c_seq or None, h_T, c_T, number of launches)."""
+    """One launch of ``csrc/lstm_scan.cu`` over all the batch's row slices.
+    K3 and K6b carry the c_seq residual, K1 and K6a do not. Returns (out,
+    c_seq or None, h_T, c_T)."""
     if layout == FLAT:
         T, B, H = _check_inputs(xw, w_hh)
         out_shape = (T, B, 2 * H)
@@ -141,45 +177,129 @@ def _launch_forward(name: str, xw: Tensor, w_hh: Tensor, layout: int,
         out_shape = (T, 2, B, H)
     dev = _cuda_checks(name, (xw, w_hh), H)
     lib = _kernels.library()
-    chunks = _batch_chunks(B, _row_cap(name, 'svtsg_lstm_max_rows', H))
+    slices = _row_slices(B, *_cluster_plan(name, 'svtsg_lstm', H,
+                                           xw.dtype.itemsize,
+                                           _device_index(dev)))
     f32 = dict(device=dev, dtype=torch.float32)
     out = torch.empty(out_shape, device=dev, dtype=xw.dtype)
     h_T, c_T = torch.empty(2, B, H, **f32), torch.empty(2, B, H, **f32)
     c_seq = torch.empty(T, 2, B, H, **f32) if with_c_seq else None
-    rows = max(b1 - b0 for b0, b1 in chunks)
-    h_buf = torch.empty(2, 2, rows, H, **f32)
-    barrier = torch.empty(1, device=dev, dtype=torch.int32)
-    for b0, b1 in chunks:
-        err = lib.svtsg_lstm_recurrence(
-            xw.data_ptr(), w_hh.data_ptr(), out.data_ptr(), h_T.data_ptr(),
-            c_T.data_ptr(), None if c_seq is None else c_seq.data_ptr(),
-            h_buf.data_ptr(), barrier.data_ptr(), T, b1 - b0, H, b0, B,
-            layout, _DTYPE_CODES[xw.dtype], _DTYPE_CODES[w_hh.dtype],
-            int(gates_bf16), _device_index(dev), _stream(dev))
-        _kernels.check(err, name)
-    return out, c_seq, h_T, c_T, len(chunks)
+    err = lib.svtsg_lstm_recurrence(
+        xw.data_ptr(), w_hh.data_ptr(), out.data_ptr(), h_T.data_ptr(),
+        c_T.data_ptr(), None if c_seq is None else c_seq.data_ptr(),
+        T, B, H, len(slices), layout, _DTYPE_CODES[xw.dtype],
+        _DTYPE_CODES[w_hh.dtype], int(gates_bf16), _device_index(dev),
+        _stream(dev))
+    _kernels.check(err, name)
+    return out, c_seq, h_T, c_T
 
 
 def _launch_backward(name: str, args, layout: int, T: int, B: int, H: int):
-    """Launches of ``csrc/lstm_bwd.cu`` over the batch's row slices; every
-    launch after the first adds its d_w_hh to the sum so far. ``args`` are
-    (xw, w_hh, out, c_seq, d_out, d_hT, d_cT). Returns (d_xw f32, d_w_hh
-    f32, number of launches)."""
+    """One launch group of ``csrc/lstm_bwd.cu``: the backward recurrence
+    over all the batch's row slices, then the weight-gradient kernel.
+    ``args`` are (xw, w_hh, out, c_seq, d_out, d_hT, d_cT). Returns (d_xw
+    f32, d_w_hh f32)."""
     xw, w_hh = args[:2]
     dev = _cuda_checks(name, args, H)
     lib = _kernels.library()
-    chunks = _batch_chunks(B, _row_cap(name, 'svtsg_lstm_bwd_max_rows', H))
+    slices = _row_slices(B, *_cluster_plan(name, 'svtsg_lstm_bwd', H,
+                                           xw.dtype.itemsize,
+                                           _device_index(dev)))
     d_xw = torch.empty(xw.shape, device=dev, dtype=torch.float32)
     d_w = torch.empty(2, H, 4 * H, device=dev, dtype=torch.float32)
-    barrier = torch.empty(1, device=dev, dtype=torch.int32)
-    for i, (b0, b1) in enumerate(chunks):
-        err = lib.svtsg_lstm_bwd(
-            *(a.data_ptr() for a in args), d_xw.data_ptr(), d_w.data_ptr(),
-            barrier.data_ptr(), T, b1 - b0, H, b0, B, int(i > 0), layout,
-            _DTYPE_CODES[xw.dtype], _DTYPE_CODES[w_hh.dtype],
-            _device_index(dev), _stream(dev))
-        _kernels.check(err, name)
-    return d_xw, d_w, len(chunks)
+    err = lib.svtsg_lstm_bwd(
+        *(a.data_ptr() for a in args), d_xw.data_ptr(), d_w.data_ptr(),
+        T, B, H, len(slices), layout, _DTYPE_CODES[xw.dtype],
+        _DTYPE_CODES[w_hh.dtype], _device_index(dev), _stream(dev))
+    _kernels.check(err, name)
+    return d_xw, d_w
+
+
+def lstm_weight_grad_plain(out: Tensor, d_xw: Tensor, w_dtype: torch.dtype,
+                           layout: int) -> Tensor:
+    """The recurrent weights' gradient as PyTorch operations:
+    ``d_w_hh[d] = sum_s h_prev[s]^T @ dgates[s]`` over the steps s >= 1,
+    with h_prev the forward's ``out`` one step earlier and dgates the
+    backward's ``d_xw`` (f32), both rounded to ``w_dtype`` and summed in
+    f32, as the JAX bodies cast them (``ops/pallas/lstm_scan.py:444-489``).
+
+    ``layout`` FLAT: out [T, B, 2H] in time order, d_xw [T, B, 8H]; the
+    forward direction pairs ``out[t-1, :, :H]`` with ``d_xw[t, :, :4H]``,
+    the backward direction ``out[t+1, :, H:]`` with ``d_xw[t, :, 4H:]``.
+    STACKED: out [T, 2, B, H] and d_xw [T, 2, B, 4H] by step; ``out[s-1, d]``
+    pairs with ``d_xw[s, d]``. Returns d_w_hh [2, H, 4H] f32 (zero at T=1).
+    """
+    f32 = torch.float32
+    h = out.to(w_dtype).to(f32)
+    g = d_xw.to(w_dtype).to(f32)
+    if layout == FLAT:
+        H = out.shape[-1] // 2
+        pairs = ((h[:-1, :, :H], g[1:, :, :4 * H]),
+                 (h[1:, :, H:], g[:-1, :, 4 * H:]))
+    else:
+        pairs = ((h[:-1, 0], g[1:, 0]), (h[:-1, 1], g[1:, 1]))
+    return torch.stack([torch.einsum('sbk,sbc->kc', a, b) for a, b in pairs])
+
+
+def lstm_weight_grad(out: Tensor, d_xw: Tensor, w_dtype: torch.dtype,
+                     layout: int) -> Tensor:
+    """The weight-gradient kernel of ``csrc/lstm_bwd.cu`` alone (K4 and K6c
+    launch it right after their recurrence). Same contract as
+    :func:`lstm_weight_grad_plain`, which CPU tensors take; CUDA tensors
+    launch the kernel or raise (out f32, or bf16 on the stacked layout;
+    d_xw f32; contiguous, on one card, H a multiple of 8)."""
+    if layout not in (FLAT, STACKED):
+        raise ValueError(f'layout must be FLAT or STACKED, got {layout}')
+    if out.dim() != 3 + layout or (layout == STACKED and out.shape[1] != 2):
+        raise ValueError(f'out has shape {tuple(out.shape)} for layout '
+                         f'{layout}')
+    T, B = out.shape[0], out.shape[-2]
+    H = out.shape[-1] // 2 if layout == FLAT else out.shape[-1]
+    want = (T, B, 8 * H) if layout == FLAT else (T, 2, B, 4 * H)
+    if tuple(d_xw.shape) != want or d_xw.dtype != torch.float32:
+        raise ValueError(f'd_xw must be f32 {list(want)}, got {d_xw.dtype} '
+                         f'{list(d_xw.shape)}')
+    if (out.dtype not in _DTYPE_CODES or w_dtype not in _DTYPE_CODES
+            or (layout == FLAT and (out.dtype, w_dtype)
+                != (torch.float32, torch.float32))):
+        raise TypeError(f'lstm_weight_grad: out {out.dtype}, w_dtype '
+                        f'{w_dtype} on layout {layout}')
+    if _on_cpu(out, d_xw):
+        return lstm_weight_grad_plain(out, d_xw, w_dtype, layout)
+    dev = _cuda_checks('lstm_weight_grad', (out, d_xw), H)
+    d_w = torch.empty(2, H, 4 * H, device=dev, dtype=torch.float32)
+    err = _kernels.library().svtsg_lstm_weight_grad(
+        out.data_ptr(), d_xw.data_ptr(), d_w.data_ptr(), T, B, H, layout,
+        _DTYPE_CODES[out.dtype], _DTYPE_CODES[w_dtype], _device_index(dev),
+        _stream(dev))
+    _kernels.check(err, 'lstm_weight_grad')
+    lstm_weight_grad.launches += 1
+    return d_w
+
+
+lstm_weight_grad.launches = 0
+
+
+def lstm_exchange_floor(xw_flat: Tensor, w_hh: Tensor) -> Tensor:
+    """The latency floor of the forward recurrence, for measurements only:
+    K1's kernel with the product left out, so that T dependent steps of
+    prefetch, gate math, stores, exchange of h and cluster barrier remain.
+    Same inputs as :func:`lstm_recurrence`, on a card only; returns ``out``
+    (that of a layer whose w_hh is zero)."""
+    T, B, H = _check_inputs(xw_flat, w_hh)
+    dev = _cuda_checks('lstm_exchange_floor', (xw_flat, w_hh), H)
+    slices = _row_slices(B, *_cluster_plan('lstm_exchange_floor',
+                                           'svtsg_lstm', H, 4,
+                                           _device_index(dev)))
+    f32 = dict(device=dev, dtype=torch.float32)
+    out = torch.empty(T, B, 2 * H, **f32)
+    h_T, c_T = torch.empty(2, B, H, **f32), torch.empty(2, B, H, **f32)
+    err = _kernels.library().svtsg_lstm_recurrence_floor(
+        xw_flat.data_ptr(), w_hh.data_ptr(), out.data_ptr(), h_T.data_ptr(),
+        c_T.data_ptr(), T, B, H, len(slices), _device_index(dev),
+        _stream(dev))
+    _kernels.check(err, 'lstm_exchange_floor')
+    return out
 
 
 def _cotangent(g: Optional[Tensor], shape, dtype, like: Tensor) -> Tensor:
@@ -239,9 +359,9 @@ def lstm_recurrence(xw_flat: Tensor, w_hh: Tensor
     :class:`LSTMRecurrence` (K3 forward, K4 backward). Otherwise CPU
     tensors take :func:`lstm_recurrence_plain` and CUDA tensors launch K1
     (``csrc/lstm_scan.cu``) or raise: it takes contiguous f32 inputs on one
-    card, any T >= 1, H a multiple of 8 (the grid is 2H/8 blocks, which
-    must all be resident at once) and any B, in one launch per slice of at
-    most 186 rows at H = 256.
+    card, any T >= 1, H a multiple of 8 (a cluster's 8 blocks take H/8
+    units each) and any B, in one launch: the batch's row slices go to
+    clusters that run independently.
     """
     if torch.is_grad_enabled() and (xw_flat.requires_grad
                                     or w_hh.requires_grad):
@@ -249,9 +369,9 @@ def lstm_recurrence(xw_flat: Tensor, w_hh: Tensor
     _check_inputs(xw_flat, w_hh)
     if _on_cpu(xw_flat, w_hh):
         return lstm_recurrence_plain(xw_flat, w_hh)
-    out, _, h_T, c_T, n = _launch_forward('lstm_recurrence', xw_flat, w_hh,
-                                          FLAT, with_c_seq=False)
-    lstm_recurrence.launches += n
+    out, _, h_T, c_T = _launch_forward('lstm_recurrence', xw_flat, w_hh,
+                                       FLAT, with_c_seq=False)
+    lstm_recurrence.launches += 1
     return out, h_T, c_T
 
 
@@ -273,10 +393,10 @@ def lstm_recurrence_train(xw_flat: Tensor, w_hh: Tensor
     _check_inputs(xw_flat, w_hh)
     if _on_cpu(xw_flat, w_hh):
         return lstm_recurrence_train_plain(xw_flat, w_hh)
-    *result, n = _launch_forward('lstm_recurrence_train', xw_flat, w_hh,
-                                 FLAT, with_c_seq=True)
-    lstm_recurrence_train.launches += n
-    return tuple(result)
+    result = _launch_forward('lstm_recurrence_train', xw_flat, w_hh, FLAT,
+                             with_c_seq=True)
+    lstm_recurrence_train.launches += 1
+    return result
 
 
 lstm_recurrence_train.launches = 0
@@ -352,16 +472,16 @@ def lstm_recurrence_bwd(xw_flat: Tensor, w_hh: Tensor, out: Tensor,
 
     CPU tensors take :func:`lstm_recurrence_bwd_plain`. CUDA tensors launch
     ``csrc/lstm_bwd.cu`` or raise: contiguous f32 inputs on one card, H a
-    multiple of 8 and any B, in one launch per slice of at most 108 rows at
-    H = 256.
+    multiple of 8 and any B, in one launch group (the recurrence over all
+    row slices, then the weight-gradient kernel).
     """
     args = (xw_flat, w_hh, out, c_seq, d_out, d_hT, d_cT)
     T, B, H = _check_bwd_inputs(*args)
     if _on_cpu(*args):
         return lstm_recurrence_bwd_plain(*args)
-    d_xw, d_w, n = _launch_backward('lstm_recurrence_bwd', args, FLAT, T, B, H)
-    lstm_recurrence_bwd.launches += n
-    return d_xw, d_w
+    result = _launch_backward('lstm_recurrence_bwd', args, FLAT, T, B, H)
+    lstm_recurrence_bwd.launches += 1
+    return result
 
 
 lstm_recurrence_bwd.launches = 0
@@ -467,9 +587,9 @@ def lstm_scan_stacked(xw: Tensor, w_hh: Tensor, gates_bf16: bool = False
     _check_stacked(xw, w_hh)
     if _on_cpu(xw, w_hh):
         return lstm_scan_stacked_plain(xw, w_hh, gates_bf16)
-    out, _, h_T, c_T, n = _launch_forward('lstm_scan_stacked', xw, w_hh,
-                                          STACKED, False, gates_bf16)
-    lstm_scan_stacked.launches += n
+    out, _, h_T, c_T = _launch_forward('lstm_scan_stacked', xw, w_hh,
+                                       STACKED, False, gates_bf16)
+    lstm_scan_stacked.launches += 1
     return out, h_T, c_T
 
 
@@ -494,10 +614,10 @@ def lstm_scan_stacked_train(xw: Tensor, w_hh: Tensor
     _check_stacked(xw, w_hh)
     if _on_cpu(xw, w_hh):
         return lstm_scan_stacked_train_plain(xw, w_hh)
-    *result, n = _launch_forward('lstm_scan_stacked_train', xw, w_hh,
-                                 STACKED, with_c_seq=True)
-    lstm_scan_stacked_train.launches += n
-    return tuple(result)
+    result = _launch_forward('lstm_scan_stacked_train', xw, w_hh, STACKED,
+                             with_c_seq=True)
+    lstm_scan_stacked_train.launches += 1
+    return result
 
 
 lstm_scan_stacked_train.launches = 0
@@ -578,10 +698,9 @@ def lstm_scan_stacked_bwd(xw: Tensor, w_hh: Tensor, out: Tensor,
     T, B, H = _check_stacked_bwd(*args)
     if _on_cpu(*args):
         return lstm_scan_stacked_bwd_plain(*args)
-    d_xw, d_w, n = _launch_backward('lstm_scan_stacked_bwd', args, STACKED,
-                                    T, B, H)
-    lstm_scan_stacked_bwd.launches += n
-    return d_xw, d_w
+    result = _launch_backward('lstm_scan_stacked_bwd', args, STACKED, T, B, H)
+    lstm_scan_stacked_bwd.launches += 1
+    return result
 
 
 lstm_scan_stacked_bwd.launches = 0

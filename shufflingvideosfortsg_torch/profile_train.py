@@ -29,8 +29,9 @@ from .train.state import TrainState
 from .train.steps import make_gmd_train_step
 
 # kernel-name patterns of the groups a step's device time is split into
-GROUPS = (('K3 lstm_flat_kernel', ('lstm_flat_kernel',)),
+GROUPS = (('K3 lstm_fwd_kernel', ('lstm_fwd_kernel',)),
           ('K4 lstm_bwd_kernel', ('lstm_bwd_kernel',)),
+          ('K4 lstm_weight_grad_kernel', ('lstm_weight_grad_kernel',)),
           ('K2 scdm_kernel', ('scdm_kernel',)),
           ('GEMMs', ('gemm', 'Gemm', 'gemv', 'cutlass', 'sm90_xmma',
                      'dot_kernel')),
@@ -118,7 +119,7 @@ def main() -> None:
     print(f'profile window: {n_prof} steps, wall {wall_ms:.3f} ms, device '
           f'busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)')
     for name, us in groups.items():
-        print(f'  group {name:22s} {us / 1e3 / n_prof:9.4f} ms/step '
+        print(f'  group {name:27s} {us / 1e3 / n_prof:9.4f} ms/step '
               f'{100 * us / 1e3 / busy_ms:5.1f}%')
     print_kernels(kernels, n_prof, busy_ms, top=20)
     print(json.dumps({

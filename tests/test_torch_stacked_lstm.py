@@ -1,4 +1,4 @@
-"""The stacked-layout recurrence kernels K6a-d and the batch chunking of
+"""The stacked-layout recurrence kernels K6a-d and the row slices of
 every recurrence kernel.
 
 The plain versions of K6a (``lstm_scan_stacked``), K6b
@@ -289,8 +289,9 @@ def test_batch_chunks_refuse_an_empty_cap():
 
 @pytest.mark.parametrize('layout', ['flat', 'stacked'])
 def test_chunked_plain_path_matches_one_call(layout):
-    """What the wrappers do past the row cap, on the plain versions: each
-    chunk's rows of every output in place, d_w_hh the sum of the chunks'."""
+    """What the kernels' clusters do with the batch's row slices, on the
+    plain versions: each slice's rows of every output in place, d_w_hh the
+    sum over the slices."""
     T, B, H = 6, 7, 8
     xw, w_hh = _inputs(9, T, B, H)
     rng = np.random.RandomState(3)
@@ -359,6 +360,17 @@ K6_CUDA_BF16_TOL = 2e-2  # a few bf16 ulps, as BF16_TOL
 # K6a: the same rounding points on both sides, so at most one bf16 ulp of
 # values below 1 (2^-8), as chip_smoke.py's K6A_BF16_TOL
 K6A_CUDA_BF16_TOL = 4e-3
+# K6a with gates_bf16 rounds the pre-activation itself, so a sum in another
+# order than the plain version's flips a gate by an ulp now and then and
+# the row drifts. As chip_smoke.py's K6A_GATES_TOL, K6A_GATES_SHARE and
+# K6A_GATES_MEAN_TOL, where the readings stand: the largest error of out
+# and h_T is held to two bf16 ulps of values below 1 and that of c_T, which
+# is not bounded by 1, to 1e-2; at most 2e-4 of an output's elements may lie
+# more than K6A_CUDA_BF16_TOL off; and each output's MEAN error is held
+# below what the two gate modes differ by.
+K6A_CUDA_GATES_TOL = (8e-3, 8e-3, 1e-2)  # out, h_T, c_T
+K6A_CUDA_GATES_SHARE = 2e-4
+K6A_CUDA_GATES_MEAN_TOL = 2e-4
 K6C_CUDA_RTOL, K6C_CUDA_ATOL = 1e-3, 1e-4  # as K4
 
 
@@ -378,15 +390,20 @@ def test_k6a_kernel_matches_plain_on_cuda(T, B, H, xdt, wdt, gates):
         want = L.lstm_scan_stacked_plain(x, w, gates)
         other_mode = L.lstm_scan_stacked_plain(x, w, not gates)
     torch.cuda.synchronize()
-    assert L.lstm_scan_stacked.launches == before + (2 if B > 186 else 1)
-    tol = K6_CUDA_TOL if xdt == wdt == 'float32' and not gates \
-        else K6A_CUDA_BF16_TOL
-    for g, ww in zip(got, want):
+    assert L.lstm_scan_stacked.launches == before + 1  # any B: one launch
+    tol = K6_CUDA_TOL if xdt == wdt == 'float32' else K6A_CUDA_BF16_TOL
+    for g, ww, gates_tol in zip(got, want, K6A_CUDA_GATES_TOL):
         assert g.dtype == ww.dtype and g.shape == ww.shape
-        assert (g.float() - ww.float()).abs().max().item() <= tol
+        diff = (g.float() - ww.float()).abs()
+        assert diff.max().item() <= (gates_tol if gates else tol)
+        if gates:
+            assert (diff > K6A_CUDA_BF16_TOL).float().mean().item() \
+                <= K6A_CUDA_GATES_SHARE
+            assert diff.mean().item() <= K6A_CUDA_GATES_MEAN_TOL
     if B == 200:
-        assert max((g.float() - o.float()).abs().max().item()
-                   for g, o in zip(got, other_mode)) > K6A_CUDA_BF16_TOL
+        gaps = [(g.float() - o.float()).abs() for g, o in zip(got, other_mode)]
+        assert max(d.max().item() for d in gaps) > K6A_CUDA_BF16_TOL
+        assert min(d.mean().item() for d in gaps) > K6A_CUDA_GATES_MEAN_TOL
 
 
 @pytest.mark.requires_cuda
@@ -415,13 +432,13 @@ def test_k6b_k6c_kernels_match_plain_on_cuda(T, B, H, xdt, wdt):
         torch.testing.assert_close(
             g, ww, rtol=K6_CUDA_BF16_TOL if bf16 else K6C_CUDA_RTOL,
             atol=K6_CUDA_BF16_TOL if bf16 else K6C_CUDA_ATOL)
-    assert L.lstm_scan_stacked_bwd.launches == before + (2 if B > 108 else 1)
+    assert L.lstm_scan_stacked_bwd.launches == before + 1  # any B
 
 
 @pytest.mark.requires_cuda
 def test_chunked_k1_k4_match_plain_on_cuda():
-    """K1 at B=256 (two launches of 128 rows) and K4 at B=128 (two of 64)
-    and at B=256 (three)."""
+    """K1 and K4 at B=256 and B=128, past the rows one cluster holds: the
+    row slices go to clusters of one launch."""
     T, H = 16, 256
     rng = np.random.RandomState(4)
     for B in (256, 128):
@@ -443,6 +460,5 @@ def test_chunked_k1_k4_match_plain_on_cuda():
             torch.cuda.synchronize()
             torch.testing.assert_close(g, ww, rtol=K6C_CUDA_RTOL,
                                        atol=K6C_CUDA_ATOL)
-        # the row caps at H=256: 186 for K1, 108 for K4
-        assert L.lstm_recurrence.launches - n1 == -(-B // 186)
-        assert L.lstm_recurrence_bwd.launches - n4 == -(-B // 108)
+        assert L.lstm_recurrence.launches - n1 == 1
+        assert L.lstm_recurrence_bwd.launches - n4 == 1
