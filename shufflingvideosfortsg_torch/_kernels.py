@@ -41,18 +41,16 @@ COMPILE_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    'svtsg_lstm_recurrence': [_P] * 6 + [_I] * 9 + [_P],
+    'svtsg_lstm_recurrence': [_P] * 7 + [_I] * 9 + [_P],
     'svtsg_lstm_recurrence_floor': [_P] * 5 + [_I] * 5 + [_P],
-    'svtsg_lstm_max_rows': [_I, _I, _I],
-    'svtsg_lstm_active_clusters': [_I, _I, _I, _I],
-    'svtsg_lstm_bwd': [_P] * 9 + [_I] * 8 + [_P],
-    'svtsg_lstm_bwd_max_rows': [_I, _I, _I],
-    'svtsg_lstm_bwd_active_clusters': [_I, _I, _I, _I],
+    'svtsg_lstm_max_rows': [_I] * 4,
+    'svtsg_lstm_active_clusters': [_I] * 5,
+    'svtsg_lstm_bwd': [_P] * 10 + [_I] * 8 + [_P],
+    'svtsg_lstm_bwd_max_rows': [_I] * 4,
+    'svtsg_lstm_bwd_active_clusters': [_I] * 5,
     'svtsg_lstm_weight_grad': [_P] * 3 + [_I] * 7 + [_P],
-    'svtsg_scdm_attention': [_P] * 5 + [_I] * 6 + [_P],
-    'svtsg_scdm_smem_bytes': [_I, _I, _I],
-    'svtsg_scdm_max_words': [],
-    'svtsg_scdm_max_width': [],
+    'svtsg_scdm_attention': [_P] * 6 + [_I] * 6 + [_P],
+    'svtsg_scdm_bwd': [_P] * 8 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

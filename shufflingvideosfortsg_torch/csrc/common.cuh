@@ -102,7 +102,9 @@ __device__ __forceinline__ size_t out_row(int s, int d, int b, int T, int BS,
 // A thread-block cluster of kClusterBlocks blocks owns one direction and one
 // slice of the batch rows; block `rank` of it owns the H / kClusterBlocks
 // hidden units [rank * UB, (rank + 1) * UB) and keeps the four gate columns
-// of W_hh for them in shared memory as one float4 (i, f, g, o) per (k, unit).
+// of W_hh for them in shared memory as one float4 (i, f, g, o) per (k, unit)
+// (in registers at H = kRegH; in device memory where the slice leaves no
+// room for a row: w_layout_kernel below).
 // Clusters never talk to each other: the recurrence is independent by row.
 
 constexpr int kClusterBlocks = 8;  // the portable maximum
@@ -243,7 +245,48 @@ __device__ __forceinline__ void load_w_slice(float4* w_s, const WT* w, int H,
     }
 }
 
-// The register-tiled product h @ W_slice for RT batch rows. Lane = unit,
+// Where a block's W slice does not leave room for a row in shared memory
+// (H >= 304 in f32), the recurrences read it from device memory instead, in
+// the layout of the shared slice: ws[((d * kClusterBlocks + j) * H + k) * WS
+// + u] = the (i, f, g, o) columns of unit j * UB + u in row k of W_hh[d], as
+// f32 (8.5 MB at H = 512, which stays in the H100's 50 MB L2). The product
+// code reads it through the same pointer argument as the shared slice.
+// w_layout_kernel writes it once a launch, on the launch's stream, into
+// 2 * kClusterBlocks * H * WS float4 that the caller allocates.
+
+// Block j's slice of direction d in the device-memory layout.
+__device__ __forceinline__ const float4* w_global_slice(const float4* ws,
+                                                        int d, int j, int H) {
+    return ws + ((size_t)d * kClusterBlocks + j) * H
+                    * w_stride(H / kClusterBlocks);
+}
+
+template <typename WT>
+__global__ void w_layout_kernel(const WT* __restrict__ w_hh,
+                                float4* __restrict__ ws, int H) {
+    const int UB = H / kClusterBlocks, WS = w_stride(UB);
+    const size_t n = (size_t)2 * H * H;  // (direction, row k, unit)
+    for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+         e += (size_t)gridDim.x * blockDim.x) {
+        const int unit = (int)(e % H), k = (int)(e / H % H), d = (int)(e / H / H);
+        const WT* row = w_hh + ((size_t)d * H + k) * 4 * H + unit;
+        ws[(((size_t)d * kClusterBlocks + unit / UB) * H + k) * WS + unit % UB] =
+            make_float4(to_f32(row[0]), to_f32(row[H]), to_f32(row[2 * H]),
+                        to_f32(row[3 * H]));
+    }
+}
+
+template <typename WT>
+cudaError_t launch_w_layout(const WT* w_hh, float4* ws, int H,
+                            cudaStream_t st) {
+    const size_t n = (size_t)2 * H * H, need = (n + kThreads - 1) / kThreads;
+    const unsigned blocks = (unsigned)(need < 4096 ? need : 4096);
+    w_layout_kernel<WT><<<blocks, kThreads, 0, st>>>(w_hh, ws, H);
+    return cudaGetLastError();
+}
+
+// The register-tiled product h @ W_slice for RT batch rows (w_s: the slice
+// in shared or in device memory). Lane = unit,
 // warp w = the w-th eighth of k (H = kSplits * UB), so one float4 of W
 // feeds the RT rows of the tile and one broadcast float4 of h feeds four k
 // of all four gates: 16 * RT multiply-adds for 4 + RT shared-memory loads

@@ -57,6 +57,10 @@
 //    h_prev, d_out and c_seq are fetched a step ahead with cp.async while
 //    the chain's part of the step runs, so no load from device memory lies
 //    on the chain.
+//    Where the shared slice leaves no row (H >= 304 in f32), the caller
+//    passes w_glob and the slices are read from device memory, laid out
+//    once a launch by a layout kernel (common.cuh), as in the forward: 15
+//    rows a cluster at H=512 in f32.
 // 2. The weight gradient (lstm_weight_grad_kernel) is out of the loop: once
 //    d_xw is written, d_w_hh[d] = sum_s h_prev[s]^T @ dgates[s] depends on
 //    nothing in the chain. It is an [H, (T-1)*B]^T x [(T-1)*B, 4H] product a
@@ -78,15 +82,16 @@ namespace {
 using namespace svtsg;
 
 // Byte offsets of a block's shared-memory regions for R rows at width H
-// with xw, out and d_out in elements of x_bytes bytes.
+// with xw, out and d_out in elements of x_bytes bytes. With w_global the W
+// slice is read from device memory and takes no shared memory.
 struct BwdLayout {
     int w, h, part, xs, dout, cb, dg, dc, recv, total;
-    __host__ __device__ BwdLayout(int R, int H, int x_bytes) {
+    __host__ __device__ BwdLayout(int R, int H, int x_bytes, bool w_global) {
         const int UB = H / kClusterBlocks, RU = align16(R * UB * 4);
         w = 0;                                     // float4 [H][WS]
         // h_prev = out[s-1]: staged as XT (bf16 in the upper half), then
         // widened and rounded to WT in place as f32 [R][H]
-        h = w + H * w_stride(UB) * 16;
+        h = w + (w_global ? 0 : H * w_stride(UB) * 16);
         part = h + R * H * 4;                  // float4 [kSplits][kTile][UB]
         xs = part + kSplits * kTile * UB * 16;     // XT [R][4][UB]: xw[s]
         dout = align16(xs + R * 4 * UB * x_bytes); // XT [2][R][UB]: d_out[s]
@@ -230,14 +235,17 @@ __device__ __forceinline__ void dh_product_reg(const float4 (&w)[KW],
 }
 
 // KW > 0 is the kernel for H = kSplits * KW with the W values of the dh_prev
-// product in registers, KW = 0 the kernel for any H.
+// product in registers, KW = 0 the kernel for any H. The gate recompute
+// (and at KW = 0 the dh_prev product) reads the W slice from shared memory,
+// or, where w_glob is given, from device memory (w_layout_kernel).
 template <int L, typename XT, typename WT, int KW>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_bwd_kernel(const XT* __restrict__ xw, const WT* __restrict__ w_hh,
                 const XT* __restrict__ out, const float* __restrict__ c_seq,
                 const XT* __restrict__ d_out, const float* __restrict__ d_hT,
                 const float* __restrict__ d_cT, float* __restrict__ d_xw,
-                int T, int B, int H, int n_slices) {
+                const float4* __restrict__ w_glob, int T, int B, int H,
+                int n_slices) {
     extern __shared__ float4 smem4[];
     char* smem = reinterpret_cast<char*>(smem4);
     const int rank = cluster_rank();
@@ -248,9 +256,11 @@ lstm_bwd_kernel(const XT* __restrict__ xw, const WT* __restrict__ w_hh,
     const int UB = H / kClusterBlocks, u0 = rank * UB;  // this block's units
     const int tid = threadIdx.x;
 
-    const BwdLayout lay(R, H, sizeof(XT));
+    const BwdLayout lay(R, H, sizeof(XT), w_glob != nullptr);
     const int RU = align16(R * UB * 4) / 4;  // floats of an [R][UB] region
     float4* w_s = reinterpret_cast<float4*>(smem + lay.w);
+    // the products' W slice: in shared memory, or in device memory
+    const float4* w_src = w_glob ? w_global_slice(w_glob, d, rank, H) : w_s;
     float* h_s = reinterpret_cast<float*>(smem + lay.h);
     float4* part = reinterpret_cast<float4*>(smem + lay.part);
     // where out[s-1] lands: over h_s, in its upper half when XT is bf16
@@ -312,7 +322,7 @@ lstm_bwd_kernel(const XT* __restrict__ xw, const WT* __restrict__ w_hh,
         for (int r0 = 0; r0 < R; r0 += kTile) {
             const int rows = min(kTile, R - r0), rt = tile_rows(rows);
             if (s > 0) {
-                gate_product_rows(w_s, h_s + r0 * H, part, rows, UB, H);
+                gate_product_rows(w_src, h_s + r0 * H, part, rows, UB, H);
                 __syncthreads();
             }
             for (int p = tid; p < rows * UB; p += blockDim.x) {
@@ -330,7 +340,8 @@ lstm_bwd_kernel(const XT* __restrict__ xw, const WT* __restrict__ w_hh,
 
     stage_c(T - 1);
     stage(T - 1);
-    load_w_slice(w_s, w_hh + (size_t)d * H * 4 * H, H, UB, u0);
+    if (w_glob == nullptr)
+        load_w_slice(w_s, w_hh + (size_t)d * H * 4 * H, H, UB, u0);
     for (int e = tid; e < R * UB; e += blockDim.x)
         dc_s[e] = d_cT[((size_t)d * B + b0 + e / UB) * H + u0 + e % UB];
     cp_async_wait<0>();  // stage(T-1) and c_seq[T-1] have landed
@@ -391,10 +402,10 @@ lstm_bwd_kernel(const XT* __restrict__ xw, const WT* __restrict__ w_hh,
                     dh_product_reg<kTile / 2>(w_d, dg + r0 * UB, part_f,
                                               recv_next, rank, r0, rows, R);
             } else if (tile_rows(rows) == kTile) {
-                dh_product<kTile>(w_s, dg + r0 * UB, recv_next, rank, r0, rows,
-                                  R, H, UB);
+                dh_product<kTile>(w_src, dg + r0 * UB, recv_next, rank, r0,
+                                  rows, R, H, UB);
             } else {
-                dh_product<kTile / 2>(w_s, dg + r0 * UB, recv_next, rank, r0,
+                dh_product<kTile / 2>(w_src, dg + r0 * UB, recv_next, rank, r0,
                                       rows, R, H, UB);
             }
         }
@@ -567,12 +578,13 @@ struct BwdArgs {
     const float* d_cT;
     float* d_xw;
     float* d_w_hh;
+    float4* w_glob;  // null, or the device-memory slices (w_layout_kernel)
     int T, B, H, n_slices;
 };
 
-int max_rows(int H, int smem_limit, int x_bytes) {
+int max_rows(int H, int smem_limit, int x_bytes, bool w_global) {
     int R = 0;
-    while (BwdLayout(R + 1, H, x_bytes).total <= smem_limit) ++R;
+    while (BwdLayout(R + 1, H, x_bytes, w_global).total <= smem_limit) ++R;
     return R;
 }
 
@@ -592,19 +604,25 @@ template <int L, typename XT, typename WT>
 cudaError_t launch(BwdArgs a, cudaStream_t st) {
     auto kernel = a.H == kRegH ? lstm_bwd_kernel<L, XT, WT, kRegK>
                                : lstm_bwd_kernel<L, XT, WT, 0>;
-    if (a.n_slices < 1 || a.n_slices > a.B || a.H % kClusterBlocks)
+    if (a.n_slices < 1 || a.n_slices > a.B || a.H % kClusterBlocks
+        || (a.w_glob && a.H == kRegH))
         return cudaErrorInvalidValue;
     const int rows = (a.B + a.n_slices - 1) / a.n_slices;
-    const int smem = BwdLayout(rows, a.H, sizeof(XT)).total;
+    const int smem = BwdLayout(rows, a.H, sizeof(XT), a.w_glob != nullptr).total;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
+    if (a.w_glob) {
+        err = launch_w_layout(static_cast<const WT*>(a.w_hh), a.w_glob, a.H,
+                              st);
+        if (err != cudaSuccess) return err;
+    }
     ClusterLaunch cl(a.n_slices, smem, st);
     err = cudaLaunchKernelEx(
         &cl.cfg, kernel, static_cast<const XT*>(a.xw),
         static_cast<const WT*>(a.w_hh), static_cast<const XT*>(a.out), a.c_seq,
-        static_cast<const XT*>(a.d_out), a.d_hT, a.d_cT, a.d_xw, a.T, a.B, a.H,
-        a.n_slices);
+        static_cast<const XT*>(a.d_out), a.d_hT, a.d_cT, a.d_xw,
+        static_cast<const float4*>(a.w_glob), a.T, a.B, a.H, a.n_slices);
     if (err != cudaSuccess) return err;
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -633,14 +651,16 @@ extern "C" {
 
 // The most rows one cluster of the backward recurrence holds at width H,
 // with xw, out and d_out in elements of x_bytes bytes, within smem_limit
-// bytes of dynamic shared memory a block (0 when not even one row fits).
-int svtsg_lstm_bwd_max_rows(int H, int smem_limit, int x_bytes) {
-    return max_rows(H, smem_limit, x_bytes);
+// bytes of dynamic shared memory a block (0 when not even one row fits),
+// with the W slice in shared memory or (w_global) in device memory.
+int svtsg_lstm_bwd_max_rows(int H, int smem_limit, int x_bytes, int w_global) {
+    return max_rows(H, smem_limit, x_bytes, w_global);
 }
 
 // As svtsg_lstm_active_clusters, for the backward recurrence.
-int svtsg_lstm_bwd_active_clusters(int H, int rows, int x_bytes, int device) {
-    const int smem = BwdLayout(rows, H, x_bytes).total;
+int svtsg_lstm_bwd_active_clusters(int H, int rows, int x_bytes, int w_global,
+                                   int device) {
+    const int smem = BwdLayout(rows, H, x_bytes, w_global).total;
     if (x_bytes == sizeof(float))
         return active_clusters(
             H == kRegH ? lstm_bwd_kernel<kFlat, float, float, kRegK>
@@ -655,18 +675,18 @@ int svtsg_lstm_bwd_active_clusters(int H, int rows, int x_bytes, int device) {
 // Launch the backward recurrence and then the weight gradient on `stream`,
 // over a batch of B rows cut into n_slices near-equal row slices, one
 // cluster a (direction, slice). layout: kFlat (f32 only: K4) or kStacked
-// (K6c); xw_dtype (xw, out, d_out) / w_dtype: kF32 or kBF16. Returns the
-// CUDA error code (0 on success).
+// (K6c); xw_dtype (xw, out, d_out) / w_dtype: kF32 or kBF16. w_glob as in
+// svtsg_lstm_recurrence. Returns the CUDA error code (0 on success).
 int svtsg_lstm_bwd(const void* xw, const void* w_hh, const void* out,
                    const float* c_seq, const void* d_out, const float* d_hT,
-                   const float* d_cT, float* d_xw, float* d_w_hh, int T, int B,
-                   int H, int n_slices, int layout, int xw_dtype, int w_dtype,
-                   int device, void* stream) {
+                   const float* d_cT, float* d_xw, float* d_w_hh, void* w_glob,
+                   int T, int B, int H, int n_slices, int layout, int xw_dtype,
+                   int w_dtype, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const BwdArgs a{xw, w_hh, out, c_seq, d_out, d_hT, d_cT, d_xw, d_w_hh,
-                    T, B, H, n_slices};
+                    static_cast<float4*>(w_glob), T, B, H, n_slices};
     return dispatch(layout, xw_dtype, w_dtype, [&](auto l, auto x, auto w) {
         return launch<decltype(l)::value, decltype(x), decltype(w)>(a, st);
     });

@@ -62,6 +62,11 @@
 // arithmetic stays f32. The rows one cluster can hold are bounded by shared
 // memory (svtsg_lstm_max_rows: 59 at H=256 in f32, 70 with bf16 xw); the
 // caller picks the number of slices, at least enough that every slice fits.
+// From H = 304 in f32 the shared slice (H * H/8 float4: 532 KB at H=512)
+// leaves no row, and the caller passes w_glob: a layout kernel writes the
+// slices once a launch to device memory (common.cuh, w_layout_kernel), where
+// they stay in L2, and the same product code reads them from there, so the
+// block's shared memory holds only rows (23 a cluster at H=512 in f32).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,13 +85,15 @@ __device__ __forceinline__ float sigmoid_bf16(float v) {
 
 // Byte offsets of a block's shared-memory regions for R rows at width H
 // with xw in elements of x_bytes bytes. At H = kRegH the W slice is in
-// registers and takes no shared memory.
+// registers, and with w_global in device memory; neither takes shared
+// memory.
 struct FwdLayout {
     int w, h, part, xs, c, total;
-    __host__ __device__ FwdLayout(int R, int H, int x_bytes) {
+    __host__ __device__ FwdLayout(int R, int H, int x_bytes, bool w_global) {
         const int UB = H / kClusterBlocks;
+        const bool w_here = H != kRegH && !w_global;
         w = 0;                                              // float4 [H][WS]
-        h = w + (H == kRegH ? 0 : H * w_stride(UB) * 16);   // f32 [2][R][H+4]
+        h = w + (w_here ? H * w_stride(UB) * 16 : 0);       // f32 [2][R][H+4]
         part = h + 2 * R * (H + 4) * 4;         // float4 [kSplits][kTile][UB]
         xs = part + kSplits * kTile * UB * 16;              // XT [2][R][4][UB]
         c = align16(xs + 2 * R * 4 * UB * x_bytes);         // f32 [R][UB]
@@ -98,13 +105,15 @@ struct FwdLayout {
 // remains is the prefetch, the gate math, the stores, the exchange of h and
 // the barrier, whose time is the latency floor of T dependent steps.
 // KW > 0 is the kernel for H = kSplits * KW with the W slice in registers,
-// KW = 0 the kernel for any H with the W slice in shared memory.
+// KW = 0 the kernel for any H with the W slice in shared memory, or, where
+// w_glob is given, read from it in device memory (w_layout_kernel).
 template <int L, typename XT, typename WT, bool GATES_BF16, bool FLOOR, int KW>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_fwd_kernel(const XT* __restrict__ xw, const WT* __restrict__ w_hh,
                 XT* __restrict__ out, float* __restrict__ h_T,
-                float* __restrict__ c_T, float* __restrict__ c_seq, int T,
-                int B, int H, int n_slices) {
+                float* __restrict__ c_T, float* __restrict__ c_seq,
+                const float4* __restrict__ w_glob, int T, int B, int H,
+                int n_slices) {
     extern __shared__ float4 smem4[];
     char* smem = reinterpret_cast<char*>(smem4);
     const int rank = cluster_rank();
@@ -116,8 +125,10 @@ lstm_fwd_kernel(const XT* __restrict__ xw, const WT* __restrict__ w_hh,
     const int HP = H + 4;  // padded h row: 16-byte aligned
     const int tid = threadIdx.x;
 
-    const FwdLayout lay(R, H, sizeof(XT));
+    const FwdLayout lay(R, H, sizeof(XT), w_glob != nullptr);
     float4* w_s = reinterpret_cast<float4*>(smem + lay.w);
+    // the product's W slice: in shared memory, or in device memory
+    const float4* w_src = w_glob ? w_global_slice(w_glob, d, rank, H) : w_s;
     float* h_s = reinterpret_cast<float*>(smem + lay.h);
     float4* part = reinterpret_cast<float4*>(smem + lay.part);
     XT* xs = reinterpret_cast<XT*>(smem + lay.xs);
@@ -142,7 +153,7 @@ lstm_fwd_kernel(const XT* __restrict__ xw, const WT* __restrict__ w_hh,
             w_r[k] = make_float4(to_f32(row[0]), to_f32(row[H]),
                                  to_f32(row[2 * H]), to_f32(row[3 * H]));
         }
-    } else {
+    } else if (w_glob == nullptr) {
         load_w_slice(w_s, w_hh + (size_t)d * H * 4 * H, H, UB, u0);
     }
     for (int e = tid; e < R * HP; e += blockDim.x) h_s[e] = 0.0f;  // h_{-1}
@@ -161,7 +172,7 @@ lstm_fwd_kernel(const XT* __restrict__ xw, const WT* __restrict__ w_hh,
             const int rows = min(kTile, R - r0), rt = tile_rows(rows);
             if constexpr (FLOOR) {
             } else if constexpr (KW == 0) {
-                gate_product_rows(w_s, h_cur + r0 * HP, part, rows, UB, HP);
+                gate_product_rows(w_src, h_cur + r0 * HP, part, rows, UB, HP);
             } else if (rt == kTile) {
                 gate_product_reg<kTile>(w_r, h_cur + r0 * HP, part, HP);
             } else {
@@ -224,12 +235,13 @@ struct FwdArgs {
     float* h_T;
     float* c_T;
     float* c_seq;
+    float4* w_glob;  // null, or the device-memory slices (w_layout_kernel)
     int T, B, H, n_slices;
 };
 
-int max_rows(int H, int smem_limit, int x_bytes) {
+int max_rows(int H, int smem_limit, int x_bytes, bool w_global) {
     int R = 0;
-    while (FwdLayout(R + 1, H, x_bytes).total <= smem_limit) ++R;
+    while (FwdLayout(R + 1, H, x_bytes, w_global).total <= smem_limit) ++R;
     return R;
 }
 
@@ -238,18 +250,25 @@ cudaError_t launch(FwdArgs a, cudaStream_t st) {
     auto kernel = a.H == kRegH
                       ? lstm_fwd_kernel<L, XT, WT, GATES_BF16, FLOOR, kRegK>
                       : lstm_fwd_kernel<L, XT, WT, GATES_BF16, FLOOR, 0>;
-    if (a.n_slices < 1 || a.n_slices > a.B || a.H % kClusterBlocks)
+    if (a.n_slices < 1 || a.n_slices > a.B || a.H % kClusterBlocks
+        || (a.w_glob && (a.H == kRegH || FLOOR)))
         return cudaErrorInvalidValue;
     const int rows = (a.B + a.n_slices - 1) / a.n_slices;
-    const int smem = FwdLayout(rows, a.H, sizeof(XT)).total;
+    const int smem = FwdLayout(rows, a.H, sizeof(XT), a.w_glob != nullptr).total;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
+    if (a.w_glob) {
+        err = launch_w_layout(static_cast<const WT*>(a.w_hh), a.w_glob, a.H,
+                              st);
+        if (err != cudaSuccess) return err;
+    }
     ClusterLaunch cl(a.n_slices, smem, st);
     err = cudaLaunchKernelEx(&cl.cfg, kernel, static_cast<const XT*>(a.xw),
                              static_cast<const WT*>(a.w_hh),
                              static_cast<XT*>(a.out), a.h_T, a.c_T, a.c_seq,
-                             a.T, a.B, a.H, a.n_slices);
+                             static_cast<const float4*>(a.w_glob), a.T, a.B,
+                             a.H, a.n_slices);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -266,19 +285,22 @@ extern "C" {
 
 // The most rows one cluster of the recurrence holds at width H, with xw in
 // elements of x_bytes bytes, within smem_limit bytes of dynamic shared
-// memory a block (0 when not even one row fits).
-int svtsg_lstm_max_rows(int H, int smem_limit, int x_bytes) {
-    return max_rows(H, smem_limit, x_bytes);
+// memory a block (0 when not even one row fits), with the W slice in shared
+// memory or (w_global) in device memory.
+int svtsg_lstm_max_rows(int H, int smem_limit, int x_bytes, int w_global) {
+    return max_rows(H, smem_limit, x_bytes, w_global);
 }
 
 // The clusters of the recurrence that the card can hold at once with `rows`
-// rows a cluster at width H and xw in elements of x_bytes bytes, or minus
-// the CUDA error code. The wrapper plans the row slices of a launch from
-// it. Asked of the f32 (x_bytes 4) or the bf16-xw, f32-W_hh instantiation,
-// which stands for the others of its storage type: they share its shared
-// memory, and at H = kRegH every one needs the registers of a whole SM.
-int svtsg_lstm_active_clusters(int H, int rows, int x_bytes, int device) {
-    const int smem = FwdLayout(rows, H, x_bytes).total;
+// rows a cluster at width H, xw in elements of x_bytes bytes and the W slice
+// where w_global says, or minus the CUDA error code. The wrapper plans the
+// row slices of a launch from it. Asked of the f32 (x_bytes 4) or the
+// bf16-xw, f32-W_hh instantiation, which stands for the others of its
+// storage type: they share its shared memory, and at H = kRegH every one
+// needs the registers of a whole SM.
+int svtsg_lstm_active_clusters(int H, int rows, int x_bytes, int w_global,
+                               int device) {
+    const int smem = FwdLayout(rows, H, x_bytes, w_global).total;
     if (x_bytes == sizeof(float))
         return active_clusters(
             H == kRegH
@@ -295,16 +317,20 @@ int svtsg_lstm_active_clusters(int H, int rows, int x_bytes, int device) {
 // n_slices near-equal row slices, one cluster a (direction, slice). layout:
 // kFlat (f32 only, no gates_bf16: K1, K3) or kStacked (K6a, K6b); xw_dtype /
 // w_dtype: kF32 or kBF16. c_seq is the [T, 2, B, H] residual (K3, K6b) or
-// null (K1, K6a). Returns the CUDA error code (0 on success).
+// null (K1, K6a). w_glob is null (the W slices in shared memory, or in
+// registers at H = 256) or 2 * 8 * H * (H/8 | 1) float4 of device memory,
+// where a layout kernel first writes the slices for the recurrence to read
+// (not at H = 256). Returns the CUDA error code (0 on success).
 int svtsg_lstm_recurrence(const void* xw, const void* w_hh, void* out,
-                          float* h_T, float* c_T, float* c_seq, int T, int B,
-                          int H, int n_slices, int layout, int xw_dtype,
-                          int w_dtype, int gates_bf16, int device,
-                          void* stream) {
+                          float* h_T, float* c_T, float* c_seq, void* w_glob,
+                          int T, int B, int H, int n_slices, int layout,
+                          int xw_dtype, int w_dtype, int gates_bf16,
+                          int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const FwdArgs a{xw, w_hh, out, h_T, c_T, c_seq, T, B, H, n_slices};
+    const FwdArgs a{xw, w_hh, out, h_T, c_T, c_seq,
+                    static_cast<float4*>(w_glob), T, B, H, n_slices};
     if (layout == kFlat && xw_dtype == kF32 && w_dtype == kF32 && !gates_bf16)
         return launch<kFlat, float, float, false>(a, st);
     if (layout != kStacked) return cudaErrorInvalidValue;
@@ -328,7 +354,8 @@ int svtsg_lstm_recurrence_floor(const void* xw, const void* w_hh, void* out,
                                 int n_slices, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
-    const FwdArgs a{xw, w_hh, out, h_T, c_T, nullptr, T, B, H, n_slices};
+    const FwdArgs a{xw, w_hh, out, h_T, c_T, nullptr, nullptr, T, B, H,
+                    n_slices};
     return launch<kFlat, float, float, false, true>(
         a, static_cast<cudaStream_t>(stream));
 }

@@ -26,7 +26,11 @@ that exchanges h (forward) or the dh_prev partials (backward) through
 distributed shared memory, with no barrier across the grid; clusters the
 card cannot hold at once queue. A cluster holds at most as many rows as
 its blocks' shared memory allows (at H=256 in f32: 59 forward, 11 backward), which
-bounds a slice, not the batch. The backward's weight gradient is a second
+bounds a slice, not the batch. Each block keeps its slice of W_hh in shared
+memory (registers at H=256) where that leaves room for a row; from H=304 in
+f32 it reads the slice from device memory instead, laid out there once a
+launch (:func:`_cluster_plan` picks; 23 forward and 15 backward rows a
+cluster at H=512). The backward's weight gradient is a second
 kernel of the same launch group, outside the step loop, whose plain version
 is :func:`lstm_weight_grad_plain`. ``launches`` counts launches: one a call.
 """
@@ -103,29 +107,47 @@ def _device_index(dev: torch.device) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _cluster_plan(name: str, kernel: str, H: int, x_bytes: int,
-                  device: int) -> Tuple[int, int]:
+                  device: int) -> Tuple[int, int, bool]:
     """What the card ``device`` gives one recurrence kernel (``kernel``:
     ``svtsg_lstm`` or ``svtsg_lstm_bwd``) at width H with activations of
     ``x_bytes`` bytes, asked of the C side once: (the most batch rows one
     cluster holds, from the shared-memory formula; the row slices a
     direction that fill one wave, half the clusters the card holds at once
-    at that many rows, ``cudaOccupancyMaxActiveClusters``). Raises when not
-    even one row fits or the card holds no cluster."""
+    at that many rows, ``cudaOccupancyMaxActiveClusters``; whether the
+    blocks read their W_hh slices from device memory). The slices stay in
+    shared memory (in registers at H=256) wherever they leave room for a
+    row, and go to device memory where they do not (from H=304 in f32).
+    Raises when not even one row fits or the card holds no cluster."""
     lib = _kernels.library()
-    cap = getattr(lib, f'{kernel}_max_rows')(H, _kernels.MAX_SMEM_BYTES,
-                                             x_bytes)
+    max_rows = getattr(lib, f'{kernel}_max_rows')
+    w_global = False
+    cap = max_rows(H, _kernels.MAX_SMEM_BYTES, x_bytes, 0)
+    if cap < 1:
+        w_global = True
+        cap = max_rows(H, _kernels.MAX_SMEM_BYTES, x_bytes, 1)
     if cap < 1:
         raise ValueError(f'{name}: at H={H} one batch row needs more shared '
                          f'memory than the {_kernels.MAX_SMEM_BYTES} bytes a '
                          'block may use')
-    clusters = getattr(lib, f'{kernel}_active_clusters')(H, cap, x_bytes,
-                                                         device)
+    clusters = getattr(lib, f'{kernel}_active_clusters')(
+        H, cap, x_bytes, int(w_global), device)
     if clusters < 0:
         _kernels.check(-clusters, f'{name}: cudaOccupancyMaxActiveClusters')
     if clusters < 1:
         raise RuntimeError(f'{name}: the card holds no cluster of 8 blocks '
                            f'at H={H}')
-    return cap, max(1, clusters // 2)
+    return cap, max(1, clusters // 2), w_global
+
+
+def _w_global(w_global: bool, H: int, dev: torch.device) -> Optional[Tensor]:
+    """The device memory the kernels lay the W_hh slices out in where
+    :func:`_cluster_plan` says so (``w_layout_kernel`` in
+    ``csrc/common.cuh``: 2 directions x 8 blocks x H rows x (H/8 | 1)
+    float4), else None."""
+    if not w_global:
+        return None
+    return torch.empty(2 * 8 * H * ((H // 8) | 1) * 4, device=dev,
+                       dtype=torch.float32)
 
 
 def _batch_chunks(B: int, cap: int) -> List[Tuple[int, int]]:
@@ -177,16 +199,19 @@ def _launch_forward(name: str, xw: Tensor, w_hh: Tensor, layout: int,
         out_shape = (T, 2, B, H)
     dev = _cuda_checks(name, (xw, w_hh), H)
     lib = _kernels.library()
-    slices = _row_slices(B, *_cluster_plan(name, 'svtsg_lstm', H,
-                                           xw.dtype.itemsize,
-                                           _device_index(dev)))
+    cap, a_wave, w_global = _cluster_plan(name, 'svtsg_lstm', H,
+                                          xw.dtype.itemsize,
+                                          _device_index(dev))
+    slices = _row_slices(B, cap, a_wave)
     f32 = dict(device=dev, dtype=torch.float32)
     out = torch.empty(out_shape, device=dev, dtype=xw.dtype)
     h_T, c_T = torch.empty(2, B, H, **f32), torch.empty(2, B, H, **f32)
     c_seq = torch.empty(T, 2, B, H, **f32) if with_c_seq else None
+    ws = _w_global(w_global, H, dev)
     err = lib.svtsg_lstm_recurrence(
         xw.data_ptr(), w_hh.data_ptr(), out.data_ptr(), h_T.data_ptr(),
         c_T.data_ptr(), None if c_seq is None else c_seq.data_ptr(),
+        None if ws is None else ws.data_ptr(),
         T, B, H, len(slices), layout, _DTYPE_CODES[xw.dtype],
         _DTYPE_CODES[w_hh.dtype], int(gates_bf16), _device_index(dev),
         _stream(dev))
@@ -202,13 +227,16 @@ def _launch_backward(name: str, args, layout: int, T: int, B: int, H: int):
     xw, w_hh = args[:2]
     dev = _cuda_checks(name, args, H)
     lib = _kernels.library()
-    slices = _row_slices(B, *_cluster_plan(name, 'svtsg_lstm_bwd', H,
-                                           xw.dtype.itemsize,
-                                           _device_index(dev)))
+    cap, a_wave, w_global = _cluster_plan(name, 'svtsg_lstm_bwd', H,
+                                          xw.dtype.itemsize,
+                                          _device_index(dev))
+    slices = _row_slices(B, cap, a_wave)
     d_xw = torch.empty(xw.shape, device=dev, dtype=torch.float32)
     d_w = torch.empty(2, H, 4 * H, device=dev, dtype=torch.float32)
+    ws = _w_global(w_global, H, dev)
     err = lib.svtsg_lstm_bwd(
         *(a.data_ptr() for a in args), d_xw.data_ptr(), d_w.data_ptr(),
+        None if ws is None else ws.data_ptr(),
         T, B, H, len(slices), layout, _DTYPE_CODES[xw.dtype],
         _DTYPE_CODES[w_hh.dtype], _device_index(dev), _stream(dev))
     _kernels.check(err, name)
@@ -288,9 +316,13 @@ def lstm_exchange_floor(xw_flat: Tensor, w_hh: Tensor) -> Tensor:
     (that of a layer whose w_hh is zero)."""
     T, B, H = _check_inputs(xw_flat, w_hh)
     dev = _cuda_checks('lstm_exchange_floor', (xw_flat, w_hh), H)
-    slices = _row_slices(B, *_cluster_plan('lstm_exchange_floor',
-                                           'svtsg_lstm', H, 4,
-                                           _device_index(dev)))
+    cap, a_wave, w_global = _cluster_plan('lstm_exchange_floor', 'svtsg_lstm',
+                                          H, 4, _device_index(dev))
+    if w_global:
+        raise ValueError(f'lstm_exchange_floor: at H={H} the W slices do not '
+                         'fit shared memory; the floor is measured where '
+                         'they do')
+    slices = _row_slices(B, cap, a_wave)
     f32 = dict(device=dev, dtype=torch.float32)
     out = torch.empty(T, B, 2 * H, **f32)
     h_T, c_T = torch.empty(2, B, H, **f32), torch.empty(2, B, H, **f32)

@@ -3,21 +3,26 @@
 Counterpart of ``shufflingvideosfortsg_tpu/ops/pallas/scdm_fused.py``
 ``scdm_attention_fused`` (K2) and ``scdm_attention_fused_trainable`` (K5),
 and of their plain formulation ``ops/attention.py::scdm_attention``. The
-CUDA kernel is ``csrc/scdm.cu``; :func:`scdm_attention_plain` is the
-broadcast-tanh version in PyTorch, which the wrapper takes for CPU tensors
-and the card's checks hold the kernel against.
+CUDA kernels are in ``csrc/scdm.cu``: the forward, and K5's backward
+(``scdm_bwd_kernel``). :func:`scdm_attention_plain` is the broadcast-tanh
+version in PyTorch, and :func:`scdm_attention_bwd_plain` its gradients
+written out; the wrappers take them for CPU tensors, and the card's checks
+hold the kernels against them.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _kernels
 
 Tensor = torch.Tensor
+
+_BWD_THREADS, _BWD_ROWS = 64, 32  # scdm_bwd_kernel's columns and tile rows
 
 
 def _check_inputs(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
@@ -36,7 +41,28 @@ def _check_inputs(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
             f'shapes disagree: video_proj {tuple(video_proj.shape)}, '
             f'sent_proj {tuple(sent_proj.shape)}, w {tuple(w.shape)}, '
             f'sent_feat {tuple(sent_feat.shape)}')
+    if min(B, T, N, Dh, Ds) < 1:
+        raise ValueError(f'empty attention: B={B} T={T} N={N} Dh={Dh} Ds={Ds}')
     return B, T, N, Dh, Ds
+
+
+def _cuda_device(name: str, tensors) -> torch.device:
+    """The one card all ``tensors`` lie on, contiguous; raises."""
+    dev = tensors[0].device
+    if not (tensors[0].is_cuda and all(a.device == dev for a in tensors)):
+        raise ValueError(f'{name} inputs must lie on one CUDA device, got '
+                         f'{[str(a.device) for a in tensors]}')
+    if not all(a.is_contiguous() for a in tensors):
+        raise ValueError(f'{name} needs contiguous inputs')
+    return dev
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 def scdm_attention_plain(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
@@ -51,6 +77,24 @@ def scdm_attention_plain(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     return torch.einsum('btn,bnd->btd', P, sent_feat)
 
 
+def _launch_forward(args, want_p: bool) -> Tuple[Tensor, Optional[Tensor]]:
+    """One launch of the forward kernel on CUDA tensors; returns (C, P or
+    None). P is allocated when asked for or when N > 32, where the kernel
+    keeps the logits of the words past 32 in it."""
+    B, T, N, Dh, Ds = _check_inputs(*args)
+    dev = _cuda_device('scdm_attention_fused', args)
+    out = torch.empty(B, T, Ds, device=dev, dtype=torch.float32)
+    P = (torch.empty(B, T, N, device=dev, dtype=torch.float32)
+         if want_p or N > 32 else None)
+    err = _kernels.library().svtsg_scdm_attention(
+        *(a.data_ptr() for a in args), out.data_ptr(),
+        None if P is None else P.data_ptr(), B, T, N, Dh, Ds,
+        _device_index(dev), _stream(dev))
+    _kernels.check(err, 'scdm_attention_fused')
+    scdm_attention_fused.launches += 1
+    return out, P
+
+
 def scdm_attention_fused(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
                          sent_feat: Tensor) -> Tensor:
     """Per-frame text context C [B, T, Ds].
@@ -62,81 +106,170 @@ def scdm_attention_fused(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
 
     CPU tensors take :func:`scdm_attention_plain`. CUDA tensors launch
     ``csrc/scdm.cu`` or raise: it takes contiguous f32 inputs on one card,
-    N <= 32, Dh and Ds multiples of 32 up to 1024, and an N, Dh, Ds whose
-    staged rows fit one block's shared memory. It has no backward: call it
-    with gradients off, or call :func:`scdm_attention_fused_trainable`.
+    at any N, Dh and Ds. It has no backward: call it with gradients off, or
+    call :func:`scdm_attention_fused_trainable`.
     """
-    B, T, N, Dh, Ds = _check_inputs(video_proj, sent_proj, w, sent_feat)
     args = (video_proj, sent_proj, w, sent_feat)
+    _check_inputs(*args)
     if all(a.device.type == 'cpu' for a in args):
         return scdm_attention_plain(*args)
-    dev = video_proj.device
-    if not (video_proj.is_cuda and all(a.device == dev for a in args)):
-        raise ValueError('scdm_attention_fused inputs must lie on one CUDA '
-                         f'device, got {[str(a.device) for a in args]}')
-    if not all(a.is_contiguous() for a in args):
-        raise ValueError('scdm_attention_fused needs contiguous inputs')
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
         raise RuntimeError('scdm_attention_fused has no backward; call it '
                            'under torch.no_grad() or call '
                            'scdm_attention_fused_trainable')
-    lib = _kernels.library()
-    max_n, max_width = lib.svtsg_scdm_max_words(), lib.svtsg_scdm_max_width()
-    if not 1 <= N <= max_n:
-        raise ValueError(f'scdm_attention_fused takes 1 <= N <= {max_n}, got {N}')
-    if Dh % 32 or Ds % 32 or not (0 < Dh <= max_width and 0 < Ds <= max_width):
-        raise ValueError(f'Dh={Dh} and Ds={Ds} must be multiples of 32 up to '
-                         f'{max_width}')
-    smem = lib.svtsg_scdm_smem_bytes(N, Dh, Ds)
-    if smem > _kernels.MAX_SMEM_BYTES:
-        raise ValueError(f'N={N}, Dh={Dh}, Ds={Ds} need {smem} bytes of '
-                         f'shared memory per block, over the '
-                         f'{_kernels.MAX_SMEM_BYTES} a block may use')
-    out = torch.empty(B, T, Ds, device=dev, dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.svtsg_scdm_attention(
-        video_proj.data_ptr(), sent_proj.data_ptr(), w.data_ptr(),
-        sent_feat.data_ptr(), out.data_ptr(), B, T, N, Dh, Ds,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        ctypes.c_void_p(stream))
-    _kernels.check(err, 'scdm_attention_fused')
-    scdm_attention_fused.launches += 1
-    return out
+    return _launch_forward(args, want_p=False)[0]
 
 
 scdm_attention_fused.launches = 0
 
 
+def scdm_attention_bwd_core_plain(video_proj: Tensor, sent_proj: Tensor,
+                                  w: Tensor, P: Tensor, dP: Tensor
+                                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The part of the backward that ``scdm_bwd_kernel`` computes, as
+    PyTorch operations: from the softmax P [B, T, N] and its cotangent dP,
+    dl = P (dP - sum_n P dP), then with a = tanh(vp[b,t] + sp[b,n])
+    (materialised here, [B, T, N, Dh]) d_video_proj = w sum_n dl (1 - a^2),
+    d_sent_proj = w sum_t dl (1 - a^2) and d_w = sum_{b,t,n} dl a."""
+    act = torch.tanh(video_proj[:, :, None, :] + sent_proj[:, None, :, :])
+    dl = P * (dP - (P * dP).sum(-1, keepdim=True))
+    du = dl[..., None] * (1.0 - act * act)
+    return (du.sum(2) * w, du.sum(1) * w,
+            torch.einsum('btn,btnh->h', dl, act))
+
+
+def scdm_attention_bwd_plain(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
+                             sent_feat: Tensor, grad_out: Tensor
+                             ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The gradients of :func:`scdm_attention_plain` written out, without
+    autograd: the VJP that ``_scdm_bwd`` takes with ``jax.vjp`` of
+    ``ops/attention.py::scdm_attention``. grad_out is dC [B, T, Ds].
+    Recomputes P, then dP = dC sent_feat^T, d_sent_feat = P^T dC, and the
+    rest as :func:`scdm_attention_bwd_core_plain`. Returns (d_video_proj,
+    d_sent_proj, d_w, d_sent_feat)."""
+    _check_inputs(video_proj, sent_proj, w, sent_feat)
+    act = torch.tanh(video_proj[:, :, None, :] + sent_proj[:, None, :, :])
+    P = torch.softmax(torch.einsum('btnh,h->btn', act, w), dim=-1)
+    dP = torch.bmm(grad_out, sent_feat.transpose(1, 2))
+    d_sf = torch.bmm(P.transpose(1, 2), grad_out)
+    return (*scdm_attention_bwd_core_plain(video_proj, sent_proj, w, P, dP),
+            d_sf)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _bwd_spans(B: int, T: int, Dh: int, device: int,
+               t_split: Optional[int]) -> Tuple[int, int]:
+    """(spans of t, rows a span) of a backward launch: whole tiles of 32
+    rows a span, and by default as many spans as give the card about eight
+    blocks of 64 columns an SM, at most one a tile."""
+    tiles = -(-T // _BWD_ROWS)
+    if t_split is None:
+        blocks = B * -(-Dh // _BWD_THREADS)
+        t_split = -(-8 * _sm_count(device) // blocks)
+    t_split = max(1, min(t_split, tiles))
+    t_len = -(-tiles // t_split) * _BWD_ROWS
+    return -(-T // t_len), t_len
+
+
+def scdm_attention_bwd_core(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
+                            P: Tensor, dP: Tensor,
+                            t_split: Optional[int] = None
+                            ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K5's backward kernel: (d_video_proj, d_sent_proj, d_w) from the
+    forward's inputs, its softmax P and dP, as
+    :func:`scdm_attention_bwd_core_plain`, which CPU tensors take. CUDA
+    tensors launch ``scdm_bwd_kernel`` or raise (contiguous f32 on one
+    card, any shape); its partial sums over spans of t and batch rows are
+    added in a fixed order here, so two runs give equal bits. ``t_split``
+    overrides the number of spans (for measurements)."""
+    B, T, Dh = video_proj.shape
+    N = sent_proj.shape[1]
+    for name, t in (('P', P), ('dP', dP)):
+        if tuple(t.shape) != (B, T, N) or t.dtype != torch.float32:
+            raise ValueError(f'{name} must be f32 [{B}, {T}, {N}], got '
+                             f'{t.dtype} {list(t.shape)}')
+    args = (video_proj, sent_proj, w, P, dP)
+    if all(a.device.type == 'cpu' for a in args):
+        return scdm_attention_bwd_core_plain(*args)
+    dev = _cuda_device('scdm_attention_bwd', args)
+    spans, t_len = _bwd_spans(B, T, Dh, _device_index(dev), t_split)
+    f32 = dict(device=dev, dtype=torch.float32)
+    d_vp = torch.empty(B, T, Dh, **f32)
+    d_sp = torch.empty(spans, B, N, Dh, **f32)
+    d_w = torch.empty(spans * B, Dh, **f32)
+    err = _kernels.library().svtsg_scdm_bwd(
+        *(a.data_ptr() for a in args), d_vp.data_ptr(), d_sp.data_ptr(),
+        d_w.data_ptr(), B, T, N, Dh, spans, t_len, _device_index(dev),
+        _stream(dev))
+    _kernels.check(err, 'scdm_attention_bwd')
+    return d_vp, d_sp[0] if spans == 1 else d_sp.sum(0), d_w.sum(0)
+
+
+def scdm_attention_bwd(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
+                       sent_feat: Tensor, P: Optional[Tensor],
+                       grad_out: Tensor
+                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """K5's backward: the four gradients of :func:`scdm_attention_plain`.
+
+    CPU tensors take :func:`scdm_attention_bwd_plain` (P may be None).
+    CUDA tensors take P, the forward's softmax, and run dP = dC
+    sent_feat^T and d_sent_feat = P^T dC as two cuBLAS ``bmm`` (JAX leaves
+    the whole backward to XLA), then ``scdm_bwd_kernel`` for the rest, or
+    raise. ``scdm_attention_fused_trainable.launches`` counts the kernel's
+    launches."""
+    B, T, _, _, Ds = _check_inputs(video_proj, sent_proj, w, sent_feat)
+    if tuple(grad_out.shape) != (B, T, Ds) or grad_out.dtype != torch.float32:
+        raise ValueError(f'grad_out must be f32 [{B}, {T}, {Ds}], got '
+                         f'{grad_out.dtype} {list(grad_out.shape)}')
+    args = (video_proj, sent_proj, w, sent_feat, grad_out)
+    if all(a.device.type == 'cpu' for a in args):
+        return scdm_attention_bwd_plain(*args)
+    if P is None:
+        raise ValueError('scdm_attention_bwd needs the forward softmax P on '
+                         'a CUDA device')
+    _cuda_device('scdm_attention_bwd', (*args, P))
+    dP = torch.bmm(grad_out, sent_feat.transpose(1, 2))
+    d_sf = torch.bmm(P.transpose(1, 2), grad_out)
+    grads = scdm_attention_bwd_core(video_proj, sent_proj, w, P, dP)
+    scdm_attention_fused_trainable.launches += 1
+    return (*grads, d_sf)
+
+
 class _ScdmAttentionTrainable(torch.autograd.Function):
-    """K5 (``scdm_fused.py:102-122``): the K2 forward, and as backward the
-    vector-Jacobian product of the plain formulation recomputed from the
-    saved inputs, as ``_scdm_bwd`` takes ``jax.vjp`` of
-    ``ops/attention.py::scdm_attention``. The JAX backward is XLA, not a
-    Pallas kernel, so PyTorch operations are its faithful port; at B=64,
-    T=128, N=15, Dh=512 they materialise the 252 MB tanh activation."""
+    """K5 (``scdm_fused.py:102-122``): the K2 forward, which also keeps
+    the softmax P [B, T, N] as a residual on a card, and
+    :func:`scdm_attention_bwd` as backward, the vector-Jacobian product
+    that ``_scdm_bwd`` takes with ``jax.vjp`` of
+    ``ops/attention.py::scdm_attention``."""
 
     @staticmethod
     def forward(ctx, video_proj, sent_proj, w, sent_feat):
-        ctx.save_for_backward(video_proj, sent_proj, w, sent_feat)
-        return scdm_attention_fused(video_proj, sent_proj, w, sent_feat)
+        args = (video_proj, sent_proj, w, sent_feat)
+        _check_inputs(*args)
+        if all(a.device.type == 'cpu' for a in args):
+            out, P = scdm_attention_plain(*args), None
+        else:
+            out, P = _launch_forward(args, want_p=True)
+        ctx.save_for_backward(*args, P)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
-            out = scdm_attention_plain(*inputs)
-            grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        if inputs[0].is_cuda:
-            scdm_attention_fused_trainable.launches += 1
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+        *args, P = ctx.saved_tensors
+        grads = scdm_attention_bwd(*args, P, grad_out.contiguous())
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
 
 
 def scdm_attention_fused_trainable(video_proj: Tensor, sent_proj: Tensor,
                                    w: Tensor, sent_feat: Tensor) -> Tensor:
     """Differentiable :func:`scdm_attention_fused`: same contract, with a
-    backward. ``launches`` counts its backward passes on a card."""
+    backward. ``launches`` counts its backward kernel's launches on a
+    card; the forward counts as K2's."""
     return _ScdmAttentionTrainable.apply(video_proj, sent_proj, w, sent_feat)
 
 

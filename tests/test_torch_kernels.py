@@ -80,7 +80,8 @@ K2_CUDA_TOL = 1e-5
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize('T,B,H', [(128, 32, 256), (15, 32, 256), (1, 3, 256),
-                                   (33, 5, 64), (9, 2, 8)])
+                                   (33, 5, 64), (9, 2, 8), (64, 16, 512),
+                                   (20, 3, 304)])
 def test_lstm_kernel_matches_plain_on_cuda(T, B, H):
     xw, w_hh = (torch.from_numpy(a).cuda() for a in _lstm_inputs(T + B, T, B, H))
     before = lstm_recurrence.launches
@@ -97,7 +98,8 @@ def test_lstm_kernel_matches_plain_on_cuda(T, B, H):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize('B,T,N,Dh,Ds', [(32, 128, 15, 512, 512),
                                          (32, 128, 25, 512, 512),
-                                         (3, 20, 7, 64, 32)])
+                                         (3, 20, 7, 64, 32),
+                                         (8, 128, 40, 2048, 2048)])
 def test_scdm_kernel_matches_plain_on_cuda(B, T, N, Dh, Ds):
     args = [torch.from_numpy(a).cuda()
             for a in _scdm_inputs(N, B, T, N, Dh, Ds)]
@@ -115,9 +117,20 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
     xw, w_hh = (torch.from_numpy(a).cuda() for a in _lstm_inputs(0, 4, 2, 8))
     with torch.no_grad(), pytest.raises(ValueError, match='contiguous'):
         lstm_recurrence(xw.transpose(0, 1).contiguous().transpose(0, 1), w_hh)
+    # K2 takes any N and width; what it refuses is another dtype, shapes
+    # that disagree, strided inputs and inputs spread over devices
     args = [torch.from_numpy(a).cuda() for a in _scdm_inputs(0, 2, 4, 33, 32, 32)]
-    with torch.no_grad(), pytest.raises(ValueError, match='N <= 32'):
-        scdm_attention_fused(*args)
+    with torch.no_grad():
+        with pytest.raises(TypeError, match='float32'):
+            scdm_attention_fused(args[0].double(), *args[1:])
+        with pytest.raises(ValueError, match='shapes disagree'):
+            scdm_attention_fused(args[0], args[1][:, :5], *args[2:])
+        with pytest.raises(ValueError, match='contiguous'):
+            scdm_attention_fused(
+                args[0].transpose(0, 1).contiguous().transpose(0, 1),
+                *args[1:])
+        with pytest.raises(ValueError, match='one CUDA device'):
+            scdm_attention_fused(args[0], args[1].cpu(), *args[2:])
     # K2 has no backward of its own: with gradients it refuses (K5 has one)
     args = [torch.from_numpy(a).cuda() for a in _scdm_inputs(0, 2, 4, 7, 32, 32)]
     with pytest.raises(RuntimeError, match='no_grad'):

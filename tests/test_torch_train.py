@@ -146,7 +146,7 @@ def _params(**overrides):
     return params
 
 
-def _batch(seed=3):
+def _batch(seed=3, n_words=N):
     """A host-made pair batch (the JAX augmentation at a fixed key)."""
     rng = np.random.RandomState(seed)
     framestps, nfeats = _spans(rng, B, T)
@@ -158,9 +158,10 @@ def _batch(seed=3):
     pfeat, pfs, pm = jax_aug.gt_translate_batch(
         jax.random.PRNGKey(seed), jnp.asarray(video), jnp.asarray(framestps),
         jnp.asarray(nfeats))
-    batch = {'video_feat': video, 'sent_feat': rng.randn(B, N, 300)
+    batch = {'video_feat': video, 'sent_feat': rng.randn(B, n_words, 300)
              .astype(np.float32),
-             'sent_mask': np.ones((B, N), np.int32), 'framestps': framestps,
+             'sent_mask': np.ones((B, n_words), np.int32),
+             'framestps': framestps,
              'timestps': framestps.astype(np.float32), 'nfeats': nfeats,
              'duration': np.full(B, 30.0, np.float32),
              'pseudo_video_feat': pfeat, 'pseudo_framestps': pfs,
@@ -219,16 +220,28 @@ def _conditioned(grads_sd):
     dict(loss_pseudo_ground_lambda=2.0),
     dict(group_weight=True, grad_clip=True),
     dict(optim='sgd', lr_schd='l', lr=0.5),
+    # the widths that raised on the card before (faults F1 and F2): the
+    # video BiLSTMs at H=512 and the attention past 32 words. One update:
+    # at H=512 the trained weights' gradients change sign from step to
+    # step in many small elements, and Adam, which divides by their
+    # running size, turns the f32 difference of such a gradient into a
+    # visible difference of the parameter from the second update on (in
+    # a few elements of `word_embed` in one run, in hundreds of the
+    # second QAVE block's LSTM weights in another); the first update is
+    # lr * sign(g) and is held as in the other cases
+    dict(video_rnn_hiddendim=512, sent_len=40, updates=1),
 ])
 def test_train_step_matches_jax(case):
     """Tolerances of tests/test_grad_parity.py: loss rtol 2e-4, terms rtol
     5e-4, gradients atol 1e-6 rtol 2e-3, parameters after each update
     atol 2e-6 rtol 5e-3 where the step-1 gradient is above the f32 noise
     floor (1e-5) and within Adam's largest drift (2 lr a step) elsewhere."""
+    case = dict(case)
+    updates = case.pop('updates', 3)
     params = _params(**case)
     lr = float(params['lr'])
     jm, weights = _jax_setup(params)
-    b = _batch()
+    b = _batch(n_words=params['sent_len'])
     jb = {k: jnp.asarray(v) for k, v in b.items()}
     tb = {k: _t(b[k]) for k in HOST_PAIR_KEYS}
     model = _port_model(params, weights)
@@ -260,7 +273,7 @@ def test_train_step_matches_jax(case):
     # three updates on both sides from the same weights
     jstate = jax_state.create_train_state(
         weights, jax_state.make_optimizer(params, steps_per_epoch=2))
-    for n in range(3):
+    for n in range(updates):
         jstate, jm_aux = jstep(jstate, jb, key)
         metrics = step(tb, None)
         np.testing.assert_allclose(float(metrics['loss']),
@@ -275,7 +288,7 @@ def test_train_step_matches_jax(case):
                 err_msg=f'{k} after update {n + 1}')
             if (~m).any():
                 assert np.abs(g[~m] - w[~m]).max() <= 2 * lr * (n + 1) + 1e-6
-    assert state.step == 3
+    assert state.step == updates
 
 
 def test_train_step_on_device_pseudo_runs_and_is_seeded():

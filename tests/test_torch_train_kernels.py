@@ -200,7 +200,8 @@ K5_CUDA_TOL = 1e-4
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize('T,B,H', [(128, 64, 256), (15, 32, 256), (33, 5, 256),
-                                   (1, 3, 64), (9, 2, 8)])
+                                   (1, 3, 64), (9, 2, 8), (64, 16, 512),
+                                   (20, 3, 304)])
 def test_k3_k4_kernels_match_plain_on_cuda(T, B, H):
     xw, w_hh = (torch.from_numpy(a).cuda() for a in _lstm_inputs(T + B, T, B, H))
     cot = [torch.from_numpy(a).cuda() for a in _cotangents(T + B, T, B, H)]
@@ -237,3 +238,57 @@ def test_k5_matches_plain_autograd_on_cuda(B, T, N):
         (before[0] + 1, before[1] + 1)
     for g, w in zip(*grads):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=K5_CUDA_TOL)
+
+
+@pytest.mark.requires_cuda
+def test_gmd_train_step_at_the_wide_widths_matches_the_cpu_on_cuda():
+    """A GMD train step's loss and gradients at ``video_rnn_hiddendim=512``
+    (the recurrences read W_hh from device memory) and ``sent_len=40`` (the
+    attention past 32 words) on the kernels, against the same step on the
+    CPU's plain versions from the same weights, batch and pseudo videos.
+    ``chip_smoke.py`` ``[wide]`` holds it against the plain versions on the
+    card at the full width."""
+    from shufflingvideosfortsg_torch.config import load_config
+    from shufflingvideosfortsg_torch.models.build import build_model
+    from shufflingvideosfortsg_torch.profile_train import train_batch
+    from shufflingvideosfortsg_torch.train.state import TrainState
+    from shufflingvideosfortsg_torch.train.steps import (_device_pseudo,
+                                                         make_gmd_train_step)
+    params = load_config('charades_cd_i3d.yml')
+    params.update(video_rnn_hiddendim=512, sent_len=40, video_len=32,
+                  dropout=0.0, disc_dropout=0.0)
+    torch.manual_seed(0)
+    batch = train_batch(params, 8, 'cpu', seed=0)
+    pseudo = _device_pseudo(batch, torch.Generator().manual_seed(0))
+    results = []
+    for dev in ('cpu', 'cuda'):
+        torch.manual_seed(0)
+        model = build_model(params, 'gmd', device='cpu').to(dev).train()
+        step = make_gmd_train_step(model, TrainState(model, params, 10),
+                                   params)
+        before = (lstm_recurrence_train.launches,
+                  lstm_recurrence_bwd.launches,
+                  scdm_attention_fused_trainable.launches)
+        loss, aux = step.loss_fn({k: v.to(dev) for k, v in batch.items()},
+                                 {k: v.to(dev) for k, v in pseudo.items()},
+                                 None)
+        loss.backward()
+        launched = [a - b for a, b in zip(
+            (lstm_recurrence_train.launches, lstm_recurrence_bwd.launches,
+             scdm_attention_fused_trainable.launches), before)]
+        results.append(({k: float(aux[k].detach()) for k in
+                         ('loss', 'loss_g', 'loss_intra', 'loss_inter',
+                          'loss_d')},
+                        {k: p.grad.cpu() for k, p in model.named_parameters()},
+                        launched))
+    (want, want_g, _), (got, got_g, launched) = results
+    assert launched == [6, 6, 2]
+    # the CPU's plain versions sum in other orders than the card's kernels
+    # and cuBLAS: the loss tolerances of tests/test_grad_parity.py (the
+    # matching KL term is a difference of near-equal distributions, 1e-5)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, rtol=2e-4 if k == 'loss'
+                                   else 5e-4, atol=1e-5, err_msg=k)
+    for k, g in got_g.items():
+        torch.testing.assert_close(g, want_g[k], rtol=K4_CUDA_RTOL,
+                                   atol=K4_CUDA_ATOL, msg=k)
