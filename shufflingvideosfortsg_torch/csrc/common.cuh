@@ -46,24 +46,15 @@ __device__ __forceinline__ float4 round_to(float4 v) {
                        round_to<T>(v.w));
 }
 
-// Four consecutive elements as loaded (p is 4-element aligned), and as
-// floats. A load that is to overlap with arithmetic keeps the raw value in
-// its registers and widens it after the arithmetic: a conversion placed
-// right behind the load would wait for it.
-template <typename T> struct Raw4;
-template <> struct Raw4<float> { float4 v; };
-template <> struct Raw4<bf16> { uint2 v; };
-template <typename T> __device__ __forceinline__ Raw4<T> load_raw4(const T* p) {
-    return {*reinterpret_cast<const decltype(Raw4<T>::v)*>(p)};
+// Four consecutive elements (p is 4-element aligned) as floats.
+__device__ __forceinline__ float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 widen4(Raw4<float> r) { return r.v; }
-__device__ __forceinline__ float4 widen4(Raw4<bf16> r) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.v.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.v.y));
+__device__ __forceinline__ float4 load4(const bf16* p) {
+    const uint2 r = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
     return make_float4(a.x, a.y, b.x, b.y);
-}
-template <typename T> __device__ __forceinline__ float4 load4(const T* p) {
-    return widen4(load_raw4(p));
 }
 
 // Element offset of the 4H gate row of (step s, direction d, batch row b)
@@ -158,45 +149,54 @@ __device__ __forceinline__ void cluster_sync() {
     cluster_wait();
 }
 
-// The launch configuration of a recurrence kernel: 2 * n_slices clusters of
-// kClusterBlocks blocks of kThreads threads.
+// A launch configuration of `clusters` thread-block clusters of `blocks`
+// blocks of kThreads threads (the recurrences: 2 * n_slices clusters of
+// kClusterBlocks; the weight gradient: a cluster of S blocks a tile).
 struct ClusterLaunch {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    ClusterLaunch(int n_slices, int smem, cudaStream_t st) : cfg{}, attr{} {
+    ClusterLaunch(int clusters, int blocks, int smem, cudaStream_t st)
+        : cfg{}, attr{} {
         attr.id = cudaLaunchAttributeClusterDimension;
-        attr.val.clusterDim.x = kClusterBlocks;
+        attr.val.clusterDim.x = blocks;
         attr.val.clusterDim.y = 1;
         attr.val.clusterDim.z = 1;
-        cfg.gridDim = dim3(2 * n_slices * kClusterBlocks);
+        cfg.gridDim = dim3(clusters * blocks);
         cfg.blockDim = dim3(kThreads);
         cfg.dynamicSmemBytes = smem;
         cfg.stream = st;
         cfg.attrs = &attr;
         cfg.numAttrs = 1;
     }
+    ClusterLaunch(const ClusterLaunch&) = delete;  // cfg points at attr
 };
 
-// The clusters of `kernel` that the card can hold at once with `smem` bytes
-// of dynamic shared memory a block (cudaOccupancyMaxActiveClusters), or
-// minus the CUDA error code.
+// The clusters of `blocks` blocks of `kernel` that the card can hold at
+// once with `smem` bytes of dynamic shared memory a block
+// (cudaOccupancyMaxActiveClusters), or minus the CUDA error code.
 template <typename K>
-int active_clusters(K kernel, int smem, int device) {
+int active_clusters(K kernel, int smem, int device,
+                    int blocks = kClusterBlocks) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return -(int)err;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return -(int)err;
-    ClusterLaunch cl(1, smem, nullptr);
+    ClusterLaunch cl(2, blocks, smem, nullptr);
     int n = 0;
     err = cudaOccupancyMaxActiveClusters(&n, kernel, &cl.cfg);
     return err != cudaSuccess ? -(int)err : n;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst_shared, const void* src) {
+// A 16-byte copy from device to shared memory that lands after a later
+// cp_async_wait, or 16 zero bytes where !valid (src is then not read, but
+// must still be an address of device memory).
+__device__ __forceinline__ void cp_async16(void* dst_shared, const void* src,
+                                           bool valid = true) {
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
     const size_t g = __cvta_generic_to_global(src);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(g)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(g), "r"(valid ? 16 : 0)
                  : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -63,12 +63,18 @@
 //    rows a cluster at H=512 in f32.
 // 2. The weight gradient (lstm_weight_grad_kernel) is out of the loop: once
 //    d_xw is written, d_w_hh[d] = sum_s h_prev[s]^T @ dgates[s] depends on
-//    nothing in the chain. It is an [H, (T-1)*B]^T x [(T-1)*B, 4H] product a
-//    direction, tiled 64 x 64 over the output (128 blocks at H=256), staged
-//    through shared memory, an 8 x 8 register tile a thread with a stage's
-//    (s, b) pairs split over four thread groups, f32 sums in a fixed order
-//    (no atomics), h_prev read from `out` shifted by one step and both
-//    operands rounded to WT on load.
+//    nothing in the chain. It is an [H, P]^T x [P, 4H] product a direction
+//    over the P = (T-1)*B pairs (s, b), split over the pairs (split-K)
+//    inside a thread-block cluster: a cluster owns one 128 x 128 output
+//    tile and each of its S <= 8 blocks a contiguous 1/S of the pairs
+//    (ops/lstm_scan.py picks S from the clusters the card holds at once, so
+//    that the grid fills whole waves); a thread keeps 8 x 8 outputs, the
+//    operands stream through a 6-stage cp.async ring, where each thread
+//    rounds the values it copied to WT once they land; then the S partial
+//    tiles are added through
+//    distributed shared memory in rank order, each block summing and
+//    storing 1/S of the tile: a fixed order (no atomics), no workspace, one
+//    launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -423,44 +429,135 @@ lstm_bwd_kernel(const XT* __restrict__ xw, const WT* __restrict__ w_hh,
 
 // d_w_hh[d] = sum over steps s >= 1 and batch rows b of
 //   round_WT(out[s-1, d, b, :])^T (x) round_WT(d_xw[s, d, b, :]).
-// One block a 64 x 64 tile of one direction's [H, 4H] output; the (s, b)
-// pairs are walked 32 at a time through two buffers of shared memory, the
-// next 32 loaded into registers and stored to the other buffer while the
-// current ones are multiplied: one __syncthreads a stage. The block's four
-// groups of 64 threads take eight pairs of a stage each, a thread 8 x 8
-// outputs of its group's partial tile (16 multiply-adds a 16-byte load from
-// shared memory), and the four partial tiles are summed at the end in a
-// fixed order, so that the result is the same from run to run.
-constexpr int kWgTile = 64;    // output tile edge
-constexpr int kWgDepth = 32;   // (s, b) pairs a stage
-constexpr int kWgGroups = 4;   // thread groups that split a stage's pairs
-constexpr int kWgGroupThreads = kThreads / kWgGroups;
-static_assert(kWgGroupThreads * 64 == kWgTile * kWgTile,
-              "a group's threads cover the tile with 8 x 8 outputs each");
+// What bounds it on an H100: 2 * 2*P*H*4H operations, 8.5 GFLOP at T=128,
+// B=64, H=256 (0.127 ms at the 67 TFLOP/s f32 peak), against 84 MB of
+// operands read once (25 us at 3.35 TB/s): bound by operations. A product
+// whose contraction (the P pairs) is 30 times its output's edge gives too
+// few output tiles to fill 132 SMs, so the pairs are split as well:
+// tile (d, kt, ct) is owned by a cluster of S blocks, block `rank` of it
+// takes the pairs slice_rows(P, S, rank), walked kWgDepth at a time through
+// a ring of kWgStages stages filled by cp.async (zero bytes past the pairs
+// or the edges; a thread's rows followed by cursors, not divisions), the
+// stage's barrier the only one; with bf16 weights each thread rounds the
+// values it copied once they have landed, before that barrier. Two blocks
+// share an SM; an NVIDIA H100 80GB HBM3 holds 30 clusters of 8 such blocks
+// (its GPCs leave SMs over), so the 32 tiles at H=256 take S = 7, 224
+// blocks in one wave (ops/lstm_scan._weight_grad_plan). Thread (ty, tx)
+// keeps the 8 x 8 outputs rows 4ty + {0..3}, 64 + 4ty + {0..3} and the same
+// columns with tx: four 16-byte loads from shared memory feed 64 multiply-adds, and
+// a warp (4 ty x 8 tx) reads 64 and 128 contiguous bytes a load. Each block
+// then writes its partial tile over its ring, and after the cluster barrier
+// block `rank` adds the S partials of its 1/S of the tile in rank order,
+// from the other blocks' shared memory, and stores the sums.
+constexpr int kWgTile = 128;    // output tile edge (rows k, columns c)
+constexpr int kWgDepth = 16;    // (s, b) pairs a stage
+constexpr int kWgStages = 6;    // stages of the ring
+constexpr int kWgMaxSplits = 8; // blocks of a cluster: the portable maximum
+// the ring of f32 operands, over which the partial tile is written after it
+constexpr int kWgSmem =
+    kWgStages * kWgDepth * kWgTile * 2 * (int)sizeof(float);
+static_assert(kWgTile * kWgTile * sizeof(float) <= kWgSmem, "the partial tile");
+static_assert(kThreads * 64 == kWgTile * kWgTile, "8 x 8 outputs a thread");
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The pair q = (s - 1) * B + b (step s >= 1, batch row b), walked forward
+// without a division.
+struct PairCursor {
+    int s, b;
+    PairCursor() = default;
+    __device__ PairCursor(int q, int B) : s(1 + q / B), b(q % B) {}
+    __device__ void advance(int n, int B) {
+        for (b += n; b >= B; b -= B) ++s;
+    }
+};
 
 template <int L, typename XT, typename WT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 lstm_weight_grad_kernel(const XT* __restrict__ out,
                         const float* __restrict__ d_xw,
-                        float* __restrict__ d_w_hh, int T, int B, int H) {
-    // h_prev [buffer][pair][k] and dgates [buffer][pair][col]
-    __shared__ __align__(16) float a_s[2][kWgDepth][kWgTile];
-    __shared__ __align__(16) float b_s[2][kWgDepth][kWgTile];
-    // after the loop a_s holds one group's partial tile
-    static_assert(2 * kWgDepth == kWgTile, "a_s holds a tile");
-    float (*part)[kWgTile] =
-        reinterpret_cast<float (*)[kWgTile]>(&a_s[0][0][0]);
-    const int H4 = 4 * H;
-    const int d = blockIdx.z;
-    const int k0 = blockIdx.y * kWgTile, c0 = blockIdx.x * kWgTile;
-    const int tid = threadIdx.x;
-    const int grp = tid / kWgGroupThreads, t = tid % kWgGroupThreads;
-    // 8 x 8 outputs: rows 4ty + {0..3} and 32 + 4ty + {0..3}, columns the
-    // same with tx, so that a quarter warp reads 128 contiguous bytes
-    const int ty = t / 8, tx = t % 8;
-    // this thread's loads: pairs lp and lp + 16 of a stage, 4 values at lq
-    const int lp = tid / 16, lq = (tid % 16) * 4;
-    const int pairs = (T - 1) * B;
+                        float* __restrict__ d_w_hh, int T, int B, int H,
+                        int splits) {
+    extern __shared__ float4 smem4[];
+    constexpr int kStageElems = kWgDepth * kWgTile;
+    // [stage][pair][k] h_prev as XT, then [stage][pair][c] dgates as f32
+    XT* a_ring = reinterpret_cast<XT*>(smem4);
+    float* b_ring = reinterpret_cast<float*>(a_ring + kWgStages * kStageElems);
+    float* part = reinterpret_cast<float*>(smem4);  // [k][c], after the loop
+    const int H4 = 4 * H, KT = cdiv(H, kWgTile), CT = cdiv(H4, kWgTile);
+    const int rank = cluster_rank(), tile = blockIdx.x / splits;
+    const int d = tile / (KT * CT);
+    const int k0 = tile / CT % KT * kWgTile, c0 = tile % CT * kWgTile;
+    int q0, nq;  // this block's pairs [q0, q0 + nq)
+    slice_rows(T > 1 ? (T - 1) * B : 0, splits, rank, q0, nq);
+    const int stages = cdiv(nq, kWgDepth);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int ty = (warp >> 1) * 4 + (lane >> 3);
+    const int tx = (warp & 1) * 8 + (lane & 7);
+
+    // A thread copies the same chunk of NA rows of h_prev and NB rows of
+    // dgates each stage: rows tid / AC + u * (kThreads / AC) of the stage,
+    // and the same with BC, whose pairs its cursors follow.
+    constexpr int AE = 16 / sizeof(XT), AC = kWgTile / AE, BC = kWgTile / 4;
+    constexpr int NA = kWgDepth * AC / kThreads, NB = kWgDepth * BC / kThreads;
+    static_assert(NA * kThreads == kWgDepth * AC
+                      && NB * kThreads == kWgDepth * BC,
+                  "whole rounds of 16-byte chunks");
+    PairCursor ca[NA], cb[NB];
+#pragma unroll
+    for (int u = 0; u < NA; ++u)
+        ca[u] = PairCursor(q0 + (tid + u * kThreads) / AC, B);
+#pragma unroll
+    for (int u = 0; u < NB; ++u)
+        cb[u] = PairCursor(q0 + (tid + u * kThreads) / BC, B);
+    // stage st (called for st = 0, 1, ... in turn) into ring slot `slot`:
+    // zero bytes past the block's pairs and past H or 4H
+    auto load_stage = [&](int st, int slot) {
+        XT* a_s = a_ring + slot * kStageElems;
+        float* b_s = b_ring + slot * kStageElems;
+#pragma unroll
+        for (int u = 0; u < NA; ++u) {
+            const int e = tid + u * kThreads, p = e / AC, k = k0 + e % AC * AE;
+            const bool ok = st * kWgDepth + p < nq && k < H;
+            const XT* src =
+                ok ? out + out_row<L>(ca[u].s - 1, d, ca[u].b, T, B, H) + k
+                   : out;
+            cp_async16(a_s + p * kWgTile + e % AC * AE, src, ok);
+            ca[u].advance(kWgDepth, B);
+        }
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+            const int e = tid + u * kThreads, p = e / BC, c = c0 + e % BC * 4;
+            const bool ok = st * kWgDepth + p < nq && c < H4;
+            const float* src =
+                ok ? d_xw + xw_row<L>(cb[u].s, d, cb[u].b, T, B, H) + c
+                   : d_xw;
+            cp_async16(b_s + p * kWgTile + e % BC * 4, src, ok);
+            cb[u].advance(kWgDepth, B);
+        }
+    };
+    // with bf16 weights, the f32 values this thread copied into ring slot
+    // `slot`, rounded to WT in place once they have landed
+    auto round_stage = [&](int slot) {
+        if constexpr (sizeof(XT) == sizeof(float)) {
+            float* a_s = reinterpret_cast<float*>(a_ring) + slot * kStageElems;
+#pragma unroll
+            for (int u = 0; u < NA; ++u) {
+                const int e = tid + u * kThreads;
+                float4* v = reinterpret_cast<float4*>(a_s + e / AC * kWgTile
+                                                      + e % AC * AE);
+                *v = round_to<WT>(*v);
+            }
+        }
+        float* b_s = b_ring + slot * kStageElems;
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+            const int e = tid + u * kThreads;
+            float4* v = reinterpret_cast<float4*>(b_s + e / BC * kWgTile
+                                                  + e % BC * 4);
+            *v = round_to<WT>(*v);
+        }
+    };
 
     float acc[8][8];
 #pragma unroll
@@ -468,51 +565,26 @@ lstm_weight_grad_kernel(const XT* __restrict__ out,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-    // the loads stay raw in registers while a stage is multiplied; they are
-    // widened and rounded to WT on their way into shared memory
-    auto load = [&](int base, Raw4<XT>* av, Raw4<float>* bv) {
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-            const int pair = base + lp + 16 * u;
-            av[u] = Raw4<XT>{};
-            bv[u] = Raw4<float>{};
-            if (pair < pairs) {
-                const int s = 1 + pair / B, b = pair % B;
-                if (k0 + lq < H)
-                    av[u] = load_raw4(
-                        out + out_row<L>(s - 1, d, b, T, B, H) + k0 + lq);
-                if (c0 + lq < H4)
-                    bv[u] = load_raw4(
-                        d_xw + xw_row<L>(s, d, b, T, B, H) + c0 + lq);
-            }
-        }
-    };
-    auto store = [&](int buf, const Raw4<XT>* av, const Raw4<float>* bv) {
+    for (int st = 0; st < kWgStages - 1; ++st) {
+        if (st < stages) load_stage(st, st);
+        cp_async_commit();
+    }
+    for (int st = 0; st < stages; ++st) {
+        cp_async_wait<kWgStages - 2>();  // stage st has landed ...
+        if constexpr (sizeof(WT) < sizeof(float)) round_stage(st % kWgStages);
+        __syncthreads();  // ... for every thread, and slot st - 1 is free
+        const int next = st + kWgStages - 1;
+        if (next < stages) load_stage(next, next % kWgStages);
+        cp_async_commit();
+        const XT* a_s = a_ring + st % kWgStages * kStageElems;
+        const float* b_s = b_ring + st % kWgStages * kStageElems;
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-            *reinterpret_cast<float4*>(&a_s[buf][lp + 16 * u][lq]) =
-                round_to<WT>(widen4(av[u]));
-            *reinterpret_cast<float4*>(&b_s[buf][lp + 16 * u][lq]) =
-                round_to<WT>(widen4(bv[u]));
-        }
-    };
-    Raw4<XT> av[2];
-    Raw4<float> bv[2];
-    load(0, av, bv);
-    store(0, av, bv);
-    __syncthreads();
-    for (int base = 0, cur = 0; base < pairs; base += kWgDepth, cur ^= 1) {
-        const bool more = base + kWgDepth < pairs;
-        if (more) load(base + kWgDepth, av, bv);
-#pragma unroll
-        for (int pp = 0; pp < kWgDepth / kWgGroups; ++pp) {
-            const int p = grp * (kWgDepth / kWgGroups) + pp;
-            const float* ar = a_s[cur][p];
-            const float* br = b_s[cur][p];
-            const float4 a0 = *reinterpret_cast<const float4*>(ar + 4 * ty);
-            const float4 a1 = *reinterpret_cast<const float4*>(ar + 32 + 4 * ty);
-            const float4 b0 = *reinterpret_cast<const float4*>(br + 4 * tx);
-            const float4 b1 = *reinterpret_cast<const float4*>(br + 32 + 4 * tx);
+        for (int p = 0; p < kWgDepth; ++p) {
+            const float4 a0 = load4(a_s + p * kWgTile + 4 * ty);
+            const float4 a1 = load4(a_s + p * kWgTile + 64 + 4 * ty);
+            const float4 b0 = load4(b_s + p * kWgTile + 4 * tx);
+            const float4 b1 = load4(b_s + p * kWgTile + 64 + 4 * tx);
             const float ak[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
             const float bk[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -521,51 +593,36 @@ lstm_weight_grad_kernel(const XT* __restrict__ out,
                 for (int j = 0; j < 8; ++j)
                     acc[i][j] = fmaf(ak[i], bk[j], acc[i][j]);
         }
-        // the other buffer was last read before the previous stage's barrier
-        if (more) store(cur ^ 1, av, bv);
-        __syncthreads();
     }
-    // groups 1, 2, 3 hand their partial tiles to group 0, one after another
-    for (int g = 1; g < kWgGroups; ++g) {
-        if (grp == g) {
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                float* row = part[(i < 4 ? 0 : 28) + 4 * ty + i];
-                *reinterpret_cast<float4*>(row + 4 * tx) =
-                    make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-                *reinterpret_cast<float4*>(row + 32 + 4 * tx) =
-                    make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-            }
-        }
-        __syncthreads();
-        if (grp == 0) {
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-                const float* row = part[(i < 4 ? 0 : 28) + 4 * ty + i];
-                const float4 lo = *reinterpret_cast<const float4*>(row + 4 * tx);
-                const float4 hi =
-                    *reinterpret_cast<const float4*>(row + 32 + 4 * tx);
-                acc[i][0] += lo.x; acc[i][1] += lo.y;
-                acc[i][2] += lo.z; acc[i][3] += lo.w;
-                acc[i][4] += hi.x; acc[i][5] += hi.y;
-                acc[i][6] += hi.z; acc[i][7] += hi.w;
-            }
-        }
-        __syncthreads();
-    }
-    if (grp != 0) return;
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is read: the partial tile takes its room
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-        const int k = k0 + (i < 4 ? 0 : 28) + 4 * ty + i;
-        if (k >= H) continue;
-        float* row = d_w_hh + ((size_t)d * H + k) * H4 + c0;
-        if (c0 + 4 * tx < H4)
-            *reinterpret_cast<float4*>(row + 4 * tx) =
-                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        if (c0 + 32 + 4 * tx < H4)
-            *reinterpret_cast<float4*>(row + 32 + 4 * tx) =
-                make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+        float* row = part + ((i < 4 ? 0 : 60) + 4 * ty + i) * kWgTile;
+        *reinterpret_cast<float4*>(row + 4 * tx) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        *reinterpret_cast<float4*>(row + 64 + 4 * tx) =
+            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
     }
+    cluster_sync();  // every partial tile of the cluster is written
+    constexpr int kRowF4 = kWgTile / 4;
+    int e0, ne;  // this block's float4 of the tile
+    slice_rows(kWgTile * kRowF4, splits, rank, e0, ne);
+    float4* part4 = reinterpret_cast<float4*>(part);
+    for (int e = e0 + tid; e < e0 + ne; e += kThreads) {
+        const int k = k0 + e / kRowF4, c = c0 + e % kRowF4 * 4;
+        if (k >= H || c >= H4) continue;
+        float4 v = remote_shared(part4, 0)[e];
+        for (int j = 1; j < splits; ++j) {  // rank order
+            const float4 w = remote_shared(part4, j)[e];
+            v.x += w.x;
+            v.y += w.y;
+            v.z += w.z;
+            v.w += w.w;
+        }
+        *reinterpret_cast<float4*>(d_w_hh + ((size_t)d * H + k) * H4 + c) = v;
+    }
+    cluster_sync();  // no block leaves while another may still read it
 }
 
 struct BwdArgs {
@@ -579,7 +636,7 @@ struct BwdArgs {
     float* d_xw;
     float* d_w_hh;
     float4* w_glob;  // null, or the device-memory slices (w_layout_kernel)
-    int T, B, H, n_slices;
+    int T, B, H, n_slices, wg_splits;
 };
 
 int max_rows(int H, int smem_limit, int x_bytes, bool w_global) {
@@ -588,14 +645,22 @@ int max_rows(int H, int smem_limit, int x_bytes, bool w_global) {
     return R;
 }
 
+// One cluster of `splits` blocks a 128 x 128 tile of d_w_hh [2, H, 4H].
 template <int L, typename XT, typename WT>
 cudaError_t launch_weight_grad(const void* out, const float* d_xw,
-                               float* d_w_hh, int T, int B, int H,
+                               float* d_w_hh, int T, int B, int H, int splits,
                                cudaStream_t st) {
-    const dim3 grid((4 * H + kWgTile - 1) / kWgTile,
-                    (H + kWgTile - 1) / kWgTile, 2);
-    lstm_weight_grad_kernel<L, XT, WT><<<grid, kThreads, 0, st>>>(
-        static_cast<const XT*>(out), d_xw, d_w_hh, T, B, H);
+    if (H % kClusterBlocks || splits < 1 || splits > kWgMaxSplits)
+        return cudaErrorInvalidValue;
+    auto kernel = lstm_weight_grad_kernel<L, XT, WT>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+    if (err != cudaSuccess) return err;
+    const int tiles = 2 * cdiv(H, kWgTile) * cdiv(4 * H, kWgTile);
+    const ClusterLaunch cl(tiles, splits, kWgSmem, st);
+    err = cudaLaunchKernelEx(&cl.cfg, kernel, static_cast<const XT*>(out),
+                             d_xw, d_w_hh, T, B, H, splits);
+    if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
@@ -617,7 +682,7 @@ cudaError_t launch(BwdArgs a, cudaStream_t st) {
                               st);
         if (err != cudaSuccess) return err;
     }
-    ClusterLaunch cl(a.n_slices, smem, st);
+    ClusterLaunch cl(2 * a.n_slices, kClusterBlocks, smem, st);
     err = cudaLaunchKernelEx(
         &cl.cfg, kernel, static_cast<const XT*>(a.xw),
         static_cast<const WT*>(a.w_hh), static_cast<const XT*>(a.out), a.c_seq,
@@ -627,7 +692,7 @@ cudaError_t launch(BwdArgs a, cudaStream_t st) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     return launch_weight_grad<L, XT, WT>(a.out, a.d_xw, a.d_w_hh, a.T, a.B,
-                                         a.H, st);
+                                         a.H, a.wg_splits, st);
 }
 
 // Calls f.template operator()<L, XT, WT>() for the codes, or reports them
@@ -674,37 +739,60 @@ int svtsg_lstm_bwd_active_clusters(int H, int rows, int x_bytes, int w_global,
 
 // Launch the backward recurrence and then the weight gradient on `stream`,
 // over a batch of B rows cut into n_slices near-equal row slices, one
-// cluster a (direction, slice). layout: kFlat (f32 only: K4) or kStacked
-// (K6c); xw_dtype (xw, out, d_out) / w_dtype: kF32 or kBF16. w_glob as in
-// svtsg_lstm_recurrence. Returns the CUDA error code (0 on success).
+// cluster a (direction, slice), and the (step, row) pairs of the weight
+// gradient cut into wg_splits, one block of a tile's cluster each. layout:
+// kFlat (f32 only: K4) or kStacked (K6c); xw_dtype (xw, out, d_out) /
+// w_dtype: kF32 or kBF16. w_glob as in svtsg_lstm_recurrence. Returns the
+// CUDA error code (0 on success).
 int svtsg_lstm_bwd(const void* xw, const void* w_hh, const void* out,
                    const float* c_seq, const void* d_out, const float* d_hT,
                    const float* d_cT, float* d_xw, float* d_w_hh, void* w_glob,
-                   int T, int B, int H, int n_slices, int layout, int xw_dtype,
-                   int w_dtype, int device, void* stream) {
+                   int T, int B, int H, int n_slices, int wg_splits,
+                   int layout, int xw_dtype, int w_dtype, int device,
+                   void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const BwdArgs a{xw, w_hh, out, c_seq, d_out, d_hT, d_cT, d_xw, d_w_hh,
-                    static_cast<float4*>(w_glob), T, B, H, n_slices};
+                    static_cast<float4*>(w_glob), T, B, H, n_slices,
+                    wg_splits};
     return dispatch(layout, xw_dtype, w_dtype, [&](auto l, auto x, auto w) {
         return launch<decltype(l)::value, decltype(x), decltype(w)>(a, st);
     });
 }
 
 // The weight gradient alone: d_w_hh [2, H, 4H] f32 from the forward's out
-// (type x_dtype) and the backward's d_xw (f32), both rounded to w_dtype on
-// load. Returns the CUDA error code (0 on success).
+// (type x_dtype) and the backward's d_xw (f32), both rounded to w_dtype,
+// the pairs cut into `splits`. Returns the CUDA error code (0 on success).
 int svtsg_lstm_weight_grad(const void* out, const float* d_xw, float* d_w_hh,
-                           int T, int B, int H, int layout, int x_dtype,
-                           int w_dtype, int device, void* stream) {
+                           int T, int B, int H, int splits, int layout,
+                           int x_dtype, int w_dtype, int device,
+                           void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     return dispatch(layout, x_dtype, w_dtype, [&](auto l, auto x, auto w) {
         return launch_weight_grad<decltype(l)::value, decltype(x), decltype(w)>(
-            out, d_xw, d_w_hh, T, B, H, st);
+            out, d_xw, d_w_hh, T, B, H, splits, st);
     });
+}
+
+// The clusters of `splits` blocks of the weight-gradient kernel (layout and
+// dtypes as in svtsg_lstm_weight_grad) that `device` holds at once, or
+// minus the CUDA error code.
+int svtsg_lstm_weight_grad_active_clusters(int splits, int layout, int x_dtype,
+                                           int w_dtype, int device) {
+    if (splits < 1 || splits > kWgMaxSplits) return -(int)cudaErrorInvalidValue;
+    int n = 0;
+    const cudaError_t err =
+        dispatch(layout, x_dtype, w_dtype, [&](auto l, auto x, auto w) {
+            n = active_clusters(
+                lstm_weight_grad_kernel<decltype(l)::value, decltype(x),
+                                        decltype(w)>,
+                kWgSmem, device, splits);
+            return n < 0 ? (cudaError_t)-n : cudaSuccess;
+        });
+    return err != cudaSuccess ? -(int)err : n;
 }
 
 }  // extern "C"

@@ -263,7 +263,7 @@ cudaError_t launch(FwdArgs a, cudaStream_t st) {
                               st);
         if (err != cudaSuccess) return err;
     }
-    ClusterLaunch cl(a.n_slices, smem, st);
+    ClusterLaunch cl(2 * a.n_slices, kClusterBlocks, smem, st);
     err = cudaLaunchKernelEx(&cl.cfg, kernel, static_cast<const XT*>(a.xw),
                              static_cast<const WT*>(a.w_hh),
                              static_cast<XT*>(a.out), a.h_T, a.c_T, a.c_seq,

@@ -30,16 +30,23 @@ bounds a slice, not the batch. Each block keeps its slice of W_hh in shared
 memory (registers at H=256) where that leaves room for a row; from H=304 in
 f32 it reads the slice from device memory instead, laid out there once a
 launch (:func:`_cluster_plan` picks; 23 forward and 15 backward rows a
-cluster at H=512). The backward's weight gradient is a second
-kernel of the same launch group, outside the step loop, whose plain version
-is :func:`lstm_weight_grad_plain`. ``launches`` counts launches: one a call.
+cluster at H=512). The backward's weight gradient is a second kernel of
+the same launch group, outside the step loop, whose plain version is
+:func:`lstm_weight_grad_plain`: a product over the (T-1)*B (step, row)
+pairs, split over them inside a thread-block cluster. A cluster owns one
+128 x 128 tile of d_w_hh, each of its S blocks a contiguous 1/S of the
+pairs (:func:`_weight_grad_plan` picks S from the clusters the card holds
+at once, so that the grid fills whole waves), and the S partial tiles are
+added through distributed shared memory in rank order: a fixed order, one
+launch. ``launches`` counts launches: one a call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Tuple
+from fractions import Fraction
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -231,13 +238,15 @@ def _launch_backward(name: str, args, layout: int, T: int, B: int, H: int):
                                           xw.dtype.itemsize,
                                           _device_index(dev))
     slices = _row_slices(B, cap, a_wave)
+    splits = _weight_grad_splits(T, B, H, layout, xw.dtype, w_hh.dtype,
+                                 _device_index(dev))
     d_xw = torch.empty(xw.shape, device=dev, dtype=torch.float32)
     d_w = torch.empty(2, H, 4 * H, device=dev, dtype=torch.float32)
     ws = _w_global(w_global, H, dev)
     err = lib.svtsg_lstm_bwd(
         *(a.data_ptr() for a in args), d_xw.data_ptr(), d_w.data_ptr(),
         None if ws is None else ws.data_ptr(),
-        T, B, H, len(slices), layout, _DTYPE_CODES[xw.dtype],
+        T, B, H, len(slices), splits, layout, _DTYPE_CODES[xw.dtype],
         _DTYPE_CODES[w_hh.dtype], _device_index(dev), _stream(dev))
     _kernels.check(err, name)
     return d_xw, d_w
@@ -269,6 +278,72 @@ def lstm_weight_grad_plain(out: Tensor, d_xw: Tensor, w_dtype: torch.dtype,
     return torch.stack([torch.einsum('sbk,sbc->kc', a, b) for a, b in pairs])
 
 
+# the weight-gradient kernel's tiling (csrc/lstm_bwd.cu: kWgTile, kWgDepth,
+# kWgMaxSplits) and the fewest (step, row) pairs a split takes
+WG_TILE, WG_DEPTH, WG_MAX_SPLITS = 128, 16, 8
+WG_MIN_PAIRS = 2 * WG_DEPTH
+
+
+class WeightGradPlan(NamedTuple):
+    splits: int  # S: blocks a cluster, each a contiguous 1/S of the pairs
+    tiles: int   # 128 x 128 output tiles, one cluster each
+    waves: int   # waves of clusters the card runs them in
+
+
+def _weight_grad_plan(T: int, B: int, H: int,
+                      active: Sequence[int]) -> WeightGradPlan:
+    """The weight-gradient launch at (T, B, H) on a card that holds
+    ``active[s - 1]`` clusters of s blocks at once (``active[0]``: the
+    blocks it holds; ``cudaOccupancyMaxActiveClusters``, which also counts
+    what the card's GPCs leave). Of S = 1 .. 8 with at least
+    ``WG_MIN_PAIRS`` pairs a split, the S whose grid fills the largest
+    share of the blocks its waves could hold, the smallest on a tie. The
+    kernel receives S and cuts the pairs into S near-equal contiguous
+    ranges (``slice_rows`` in ``csrc/common.cuh``)."""
+    if len(active) != WG_MAX_SPLITS or active[0] < 1:
+        raise ValueError(f'need the clusters of 1..{WG_MAX_SPLITS} blocks '
+                         f'the card holds, got {list(active)}')
+    pairs = (T - 1) * B if T > 1 else 0
+    tiles = 2 * -(-H // WG_TILE) * -(-4 * H // WG_TILE)
+    best = WeightGradPlan(1, tiles, -(-tiles // active[0]))
+    fill = Fraction(tiles, best.waves * active[0])
+    for s in range(2, min(WG_MAX_SPLITS, max(1, pairs // WG_MIN_PAIRS)) + 1):
+        if active[s - 1] < 1:
+            continue
+        waves = -(-tiles // active[s - 1])
+        f = Fraction(tiles * s, waves * active[0])
+        if f > fill:
+            best, fill = WeightGradPlan(s, tiles, waves), f
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _weight_grad_active(layout: int, x_dtype: torch.dtype,
+                        w_dtype: torch.dtype, device: int) -> Tuple[int, ...]:
+    """The clusters of 1..8 blocks of the weight-gradient kernel's
+    instantiation that the card ``device`` holds at once, asked of the C
+    side once (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _kernels.library()
+    active = tuple(lib.svtsg_lstm_weight_grad_active_clusters(
+        s, layout, _DTYPE_CODES[x_dtype], _DTYPE_CODES[w_dtype], device)
+        for s in range(1, WG_MAX_SPLITS + 1))
+    for n in active:
+        if n < 0:
+            _kernels.check(-n, 'lstm_weight_grad: '
+                           'cudaOccupancyMaxActiveClusters')
+    return active
+
+
+@functools.lru_cache(maxsize=None)
+def _weight_grad_splits(T: int, B: int, H: int, layout: int,
+                        x_dtype: torch.dtype, w_dtype: torch.dtype,
+                        device: int) -> int:
+    """S, the blocks a tile's cluster that the launch at (T, B, H) takes on
+    the card ``device``."""
+    active = _weight_grad_active(layout, x_dtype, w_dtype, device)
+    return _weight_grad_plan(T, B, H, active).splits
+
+
 def lstm_weight_grad(out: Tensor, d_xw: Tensor, w_dtype: torch.dtype,
                      layout: int) -> Tensor:
     """The weight-gradient kernel of ``csrc/lstm_bwd.cu`` alone (K4 and K6c
@@ -295,11 +370,13 @@ def lstm_weight_grad(out: Tensor, d_xw: Tensor, w_dtype: torch.dtype,
     if _on_cpu(out, d_xw):
         return lstm_weight_grad_plain(out, d_xw, w_dtype, layout)
     dev = _cuda_checks('lstm_weight_grad', (out, d_xw), H)
+    splits = _weight_grad_splits(T, B, H, layout, out.dtype, w_dtype,
+                                 _device_index(dev))
     d_w = torch.empty(2, H, 4 * H, device=dev, dtype=torch.float32)
     err = _kernels.library().svtsg_lstm_weight_grad(
-        out.data_ptr(), d_xw.data_ptr(), d_w.data_ptr(), T, B, H, layout,
-        _DTYPE_CODES[out.dtype], _DTYPE_CODES[w_dtype], _device_index(dev),
-        _stream(dev))
+        out.data_ptr(), d_xw.data_ptr(), d_w.data_ptr(), T, B, H, splits,
+        layout, _DTYPE_CODES[out.dtype], _DTYPE_CODES[w_dtype],
+        _device_index(dev), _stream(dev))
     _kernels.check(err, 'lstm_weight_grad')
     lstm_weight_grad.launches += 1
     return d_w
