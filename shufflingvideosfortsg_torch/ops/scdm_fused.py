@@ -3,7 +3,8 @@
 Counterpart of ``shufflingvideosfortsg_tpu/ops/pallas/scdm_fused.py``
 ``scdm_attention_fused`` (K2) and ``scdm_attention_fused_trainable`` (K5),
 and of their plain formulation ``ops/attention.py::scdm_attention``. The
-CUDA kernels are in ``csrc/scdm.cu``: the forward, and K5's backward
+CUDA kernels are in ``csrc/scdm.cu``: the forward (``scdm_fwd_kernel``,
+its tile of rows planned by :func:`_scdm_plan`), and K5's backward
 (``scdm_bwd_kernel``). :func:`scdm_attention_plain` is the broadcast-tanh
 version in PyTorch, and :func:`scdm_attention_bwd_plain` its gradients
 written out; the wrappers take them for CPU tensors, and the card's checks
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,6 +24,9 @@ from .. import _kernels
 Tensor = torch.Tensor
 
 _BWD_THREADS, _BWD_ROWS = 64, 32  # scdm_bwd_kernel's columns and tile rows
+# the tiles of rows t a forward block may take, largest first (the kernel
+# takes any multiple of 4 up to 32)
+_FWD_ROWS = (32, 16, 8, 4)
 
 
 def _check_inputs(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
@@ -77,19 +81,71 @@ def scdm_attention_plain(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     return torch.einsum('btn,bnd->btd', P, sent_feat)
 
 
+class ScdmPlan(NamedTuple):
+    """A forward launch: ``rows`` rows t a block, ``blocks`` blocks (one a
+    tile of rows and batch row), ``smem_bytes`` of shared memory a block."""
+    rows: int
+    blocks: int
+    smem_bytes: int
+
+
+def _scdm_plan(B: int, T: int, N: int, sms: int,
+               smem_bytes: Callable[[int], int],
+               smem_cap: int = _kernels.MAX_SMEM_BYTES) -> ScdmPlan:
+    """The forward launch at (B, T, N) on a card of ``sms`` SMs that gives
+    a block ``smem_cap`` bytes of shared memory, where a block of ``rows``
+    rows at this N takes ``smem_bytes(rows)`` bytes (the kernel's layout,
+    :func:`_scdm_smem_bytes`; negative where it takes no such tile): of the
+    tiles of 32, 16, 8 and 4 rows whose shared memory fits, the largest
+    whose grid gives the card at least two blocks an SM and whose rows are
+    less than half empty (rows < 2 T), else the smallest. Raises where none
+    fits."""
+    smem = {r: smem_bytes(r) for r in _FWD_ROWS}
+    fits = [r for r in _FWD_ROWS if 0 < smem[r] <= smem_cap]
+    if not fits or sms < 1:
+        raise ValueError(f'scdm_attention_fused: no tile of rows fits '
+                         f'{smem_cap} bytes of shared memory at N={N} on '
+                         f'{sms} SMs')
+    rows = next((r for r in fits
+                 if -(-T // r) * B >= 2 * sms and r < 2 * T), fits[-1])
+    return ScdmPlan(rows, -(-T // rows) * B, smem[rows])
+
+
+def _scdm_smem_bytes(rows: int, N: int) -> int:
+    """Shared memory of a forward block of ``rows`` rows at N words, as
+    ``csrc/scdm.cu`` lays it out (``svtsg_scdm_smem_bytes``); -1 where the
+    kernel takes no tile of ``rows`` rows."""
+    return _kernels.library().svtsg_scdm_smem_bytes(rows, N)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _scdm_rows(B: int, T: int, N: int, device: int) -> int:
+    """The rows a block of the forward launch at (B, T, N) on the card
+    ``device`` takes."""
+    return _scdm_plan(B, T, N, _sm_count(device),
+                      lambda rows: _scdm_smem_bytes(rows, N)).rows
+
+
 def _launch_forward(args, want_p: bool) -> Tuple[Tensor, Optional[Tensor]]:
-    """One launch of the forward kernel on CUDA tensors; returns (C, P or
-    None). P is allocated when asked for or when N > 32, where the kernel
-    keeps the logits of the words past 32 in it."""
+    """One launch of ``scdm_fwd_kernel`` on CUDA tensors over the planned
+    tiles of rows; returns (C, P or None). P [B, T, N] is allocated and
+    written only when asked for."""
     B, T, N, Dh, Ds = _check_inputs(*args)
     dev = _cuda_device('scdm_attention_fused', args)
+    index = _device_index(dev)
+    rows = _scdm_rows(B, T, N, index)
     out = torch.empty(B, T, Ds, device=dev, dtype=torch.float32)
     P = (torch.empty(B, T, N, device=dev, dtype=torch.float32)
-         if want_p or N > 32 else None)
+         if want_p else None)
     err = _kernels.library().svtsg_scdm_attention(
         *(a.data_ptr() for a in args), out.data_ptr(),
-        None if P is None else P.data_ptr(), B, T, N, Dh, Ds,
-        _device_index(dev), _stream(dev))
+        None if P is None else P.data_ptr(), B, T, N, Dh, Ds, rows, index,
+        _stream(dev))
     _kernels.check(err, 'scdm_attention_fused')
     scdm_attention_fused.launches += 1
     return out, P
@@ -105,9 +161,14 @@ def scdm_attention_fused(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     quirk).
 
     CPU tensors take :func:`scdm_attention_plain`. CUDA tensors launch
-    ``csrc/scdm.cu`` or raise: it takes contiguous f32 inputs on one card,
-    at any N, Dh and Ds. It has no backward: call it with gradients off, or
-    call :func:`scdm_attention_fused_trainable`.
+    ``scdm_fwd_kernel`` (``csrc/scdm.cu``) once or raise: it takes
+    contiguous f32 inputs on one card, at any N, Dh and Ds. A block takes a
+    tile of rows t of one batch row (:func:`_scdm_plan`), streams k
+    through shared memory with each thread keeping 2 rows x 4 words of
+    logits, and runs the softmax and the context product from shared
+    memory; the sums run in a fixed order, so two runs give equal bits. It
+    has no backward: call it with gradients off, or call
+    :func:`scdm_attention_fused_trainable`.
     """
     args = (video_proj, sent_proj, w, sent_feat)
     _check_inputs(*args)
@@ -121,6 +182,25 @@ def scdm_attention_fused(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
 
 
 scdm_attention_fused.launches = 0
+
+
+def forward_tanh(x: Tensor) -> Tensor:
+    """tanh as ``scdm_fwd_kernel`` computes it (``tanh_fwd`` in
+    ``csrc/scdm.cu``: tanhf's polynomial where |x| < 0.6, else
+    1 - 2 / (1 + e^{2x}) on the special-function pipe, without a branch),
+    elementwise, to measure its error against :func:`torch.tanh`. CPU
+    tensors take :func:`torch.tanh`; CUDA tensors must be contiguous f32."""
+    if x.device.type == 'cpu':
+        return torch.tanh(x)
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() < 1:
+        raise ValueError(f'forward_tanh takes a contiguous f32 tensor, got '
+                         f'{x.dtype} {list(x.shape)}')
+    y = torch.empty_like(x)
+    err = _kernels.library().svtsg_scdm_tanh(
+        x.data_ptr(), y.data_ptr(), x.numel(), _device_index(x.device),
+        _stream(x.device))
+    _kernels.check(err, 'forward_tanh')
+    return y
 
 
 def scdm_attention_bwd_core_plain(video_proj: Tensor, sent_proj: Tensor,
@@ -154,11 +234,6 @@ def scdm_attention_bwd_plain(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     d_sf = torch.bmm(P.transpose(1, 2), grad_out)
     return (*scdm_attention_bwd_core_plain(video_proj, sent_proj, w, P, dP),
             d_sf)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _bwd_spans(B: int, T: int, Dh: int, device: int,

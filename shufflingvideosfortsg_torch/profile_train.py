@@ -32,7 +32,7 @@ from .train.steps import make_gmd_train_step
 GROUPS = (('K3 lstm_fwd_kernel', ('lstm_fwd_kernel',)),
           ('K4 lstm_bwd_kernel', ('lstm_bwd_kernel',)),
           ('K4 lstm_weight_grad_kernel', ('lstm_weight_grad_kernel',)),
-          ('K2 scdm_kernel', ('scdm_kernel',)),
+          ('K2 scdm_fwd_kernel', ('scdm_fwd_kernel',)),
           ('K5 scdm_bwd_kernel', ('scdm_bwd_kernel',)),
           ('GEMMs', ('gemm', 'Gemm', 'gemv', 'cutlass', 'sm90_xmma',
                      'dot_kernel')),

@@ -1,16 +1,21 @@
 """The port's kernels: each plain version against the JAX package's Pallas
 kernel run in interpret mode (and its plain JAX formulation), at small
-widths; each CUDA kernel against its plain version where a card exists.
+widths; K2's launch plan against its contract; each CUDA kernel against
+its plain version where a card exists.
 
 JAX is imported inside the JAX comparisons only, so the CUDA cases also
 run on a machine without JAX:
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernels.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
+from shufflingvideosfortsg_torch import _kernels
+from shufflingvideosfortsg_torch.ops import scdm_fused as S
 from shufflingvideosfortsg_torch.ops.lstm_scan import (lstm_recurrence,
                                                        lstm_recurrence_plain)
 from shufflingvideosfortsg_torch.ops.scdm_fused import (scdm_attention_fused,
@@ -56,13 +61,21 @@ def test_lstm_plain_matches_pallas_flat_kernel(T, B, H):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL, rtol=0)
 
 
-@pytest.mark.parametrize('N', [7, 25])
-def test_scdm_plain_matches_pallas_kernel_and_jax(N):
+# the edge shapes of K2's tiles: one word, a whole and a ragged group of
+# words, a second pass over the words, and Dh = 300 (not a multiple of the
+# 64 columns a stage streams)
+@pytest.mark.parametrize('N,Dh', [
+    pytest.param(7, 24, id='7'), pytest.param(25, 24, id='25'),
+    pytest.param(1, 24, id='1'), pytest.param(16, 24, id='16'),
+    pytest.param(17, 24, id='17'), pytest.param(33, 24, id='33'),
+    pytest.param(1, 300, id='1-Dh300'), pytest.param(17, 300, id='17-Dh300'),
+    pytest.param(33, 300, id='33-Dh300')])
+def test_scdm_plain_matches_pallas_kernel_and_jax(N, Dh):
     import jax.numpy as jnp
     from shufflingvideosfortsg_tpu.ops.attention import scdm_attention
     from shufflingvideosfortsg_tpu.ops.pallas.scdm_fused import (
         scdm_attention_fused as jax_fused)
-    arrays = _scdm_inputs(N, 8, 20, N, 24, 16)
+    arrays = _scdm_inputs(N, 8, 20, N, Dh, 16)
     got = scdm_attention_plain(*map(torch.from_numpy, arrays)).numpy()
     j = [jnp.asarray(a) for a in arrays]
     np.testing.assert_allclose(got, np.asarray(scdm_attention(*j)),
@@ -72,10 +85,6 @@ def test_scdm_plain_matches_pallas_kernel_and_jax(N):
         atol=TOL, rtol=0)
 
 
-# --- on the card -----------------------------------------------------------
-
-K1_CUDA_TOL = 1e-4  # f32 sums over H in another order, across T dependent steps
-K2_CUDA_TOL = 1e-5
 
 
 @pytest.mark.requires_cuda
@@ -95,11 +104,108 @@ def test_lstm_kernel_matches_plain_on_cuda(T, B, H):
         assert (g - w).abs().max().item() <= K1_CUDA_TOL
 
 
+# --- the plan of K2's launch (CPU) --------------------------------------------
+
+H100_SMS = 132
+PLAN_SHAPES = [(32, 128, 15), (64, 128, 15), (32, 128, 25), (32, 128, 40),
+               (8, 128, 40), (3, 20, 7), (1, 1, 1), (32, 15, 15), (5, 37, 17),
+               (2, 21, 70), (1000, 1, 3), (4, 200, 300)]
+
+
+def _stand_in_smem(N):
+    """A block's shared memory for the plan's tests on the CPU: it grows
+    with the rows and the words as the kernel's layout does (that layout,
+    ``svtsg_scdm_smem_bytes``, is held by the CUDA test below)."""
+    return lambda rows: 30_000 + 1_100 * rows + 4 * rows * N
+
+
+@pytest.mark.parametrize('sms', [132, 114, 1])
+@pytest.mark.parametrize('B,T,N', PLAN_SHAPES)
+def test_scdm_plan_covers_t_and_fits_shared_memory(B, T, N, sms):
+    smem = _stand_in_smem(N)
+    plan = S._scdm_plan(B, T, N, sms, smem)
+    assert plan.rows in S._FWD_ROWS and plan.rows % 4 == 0
+    tiles = -(-T // plan.rows)
+    assert tiles * plan.rows >= T > (tiles - 1) * plan.rows
+    assert plan.blocks == tiles * B
+    assert plan.smem_bytes == smem(plan.rows)
+    assert plan.smem_bytes <= _kernels.MAX_SMEM_BYTES
+    # the largest tile that fills the card, or the smallest that fits
+    larger = [r for r in S._FWD_ROWS if r > plan.rows
+              and smem(r) <= _kernels.MAX_SMEM_BYTES]
+    for r in larger:
+        assert -(-T // r) * B < 2 * sms or r >= 2 * T
+    if plan.rows != min(S._FWD_ROWS):
+        assert plan.blocks >= 2 * sms
+
+
+@pytest.mark.parametrize('B,T,N', [(32, 128, 15), (64, 128, 15),
+                                   (32, 128, 25), (32, 128, 40)])
+def test_scdm_plan_gives_the_main_shapes_two_waves(B, T, N):
+    """Evaluation (B=32) and K5's forward (B=64) at T=128: at least two
+    blocks an SM of an H100."""
+    plan = S._scdm_plan(B, T, N, H100_SMS, _stand_in_smem(N))
+    assert plan.blocks >= 2 * H100_SMS
+    assert plan.rows <= 16
+
+
+def test_scdm_plan_shrinks_the_tile_to_fit_shared_memory():
+    # the [rows, N] logits outgrow the shared memory for long sentences
+    N = 1500
+    smem = _stand_in_smem(N)
+    assert smem(32) > _kernels.MAX_SMEM_BYTES
+    plan = S._scdm_plan(1000, 128, N, H100_SMS, smem)
+    assert plan.rows < 32 and plan.smem_bytes <= _kernels.MAX_SMEM_BYTES
+    # a tile the kernel does not take (-1) is never planned
+    plan = S._scdm_plan(1000, 128, 15, H100_SMS,
+                        lambda rows: -1 if rows == 32 else 40_000)
+    assert plan.rows == 16
+    with pytest.raises(ValueError, match='shared memory'):
+        S._scdm_plan(8, 128, 100000, H100_SMS, _stand_in_smem(100000))
+    with pytest.raises(ValueError, match='shared memory'):
+        S._scdm_plan(8, 128, 15, H100_SMS, _stand_in_smem(15), smem_cap=1024)
+
+
+@pytest.mark.requires_cuda
+def test_scdm_smem_bytes_and_plan_on_cuda():
+    """The kernel's own layout (``svtsg_scdm_smem_bytes``): it grows with
+    the rows and the words, takes only multiples of 4 up to 32 rows, lets
+    four blocks share an SM at the main shapes, and the plan keeps it
+    within the card's shared memory at every shape."""
+    rows_taken = range(4, 33, 4)
+    for N in (1, 15, 17, 33, 70, 1500):
+        sizes = [S._scdm_smem_bytes(r, N) for r in rows_taken]
+        assert all(0 < a < b for a, b in zip(sizes, sizes[1:]))
+    for rows, N in ((0, 15), (2, 15), (6, 15), (36, 15), (64, 15), (8, 0)):
+        assert S._scdm_smem_bytes(rows, N) == -1
+    assert S._scdm_smem_bytes(16, 15) < S._scdm_smem_bytes(16, 40)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, T, N in PLAN_SHAPES + [(1000, 128, 1500)]:
+        plan = S._scdm_plan(B, T, N, sms,
+                            lambda rows: S._scdm_smem_bytes(rows, N))
+        assert 0 < plan.smem_bytes <= _kernels.MAX_SMEM_BYTES
+        if (B, T) in ((32, 128), (64, 128)) and N <= 25:
+            # 228 KB an SM, 1 KB of it reserved a block
+            assert 4 * (plan.smem_bytes + 1024) <= 228 * 1024
+
+
+# --- on the card -----------------------------------------------------------
+
+K1_CUDA_TOL = 1e-4  # f32 sums over H in another order, across T dependent steps
+K2_CUDA_TOL = 1e-5
+P_CUDA_TOL = 1e-6  # K2's softmax P against the plain one
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize('B,T,N,Dh,Ds', [(32, 128, 15, 512, 512),
                                          (32, 128, 25, 512, 512),
                                          (3, 20, 7, 64, 32),
-                                         (8, 128, 40, 2048, 2048)])
+                                         (8, 128, 40, 2048, 2048),
+                                         (3, 37, 1, 300, 256),
+                                         (5, 37, 17, 300, 256),
+                                         (4, 33, 16, 64, 64),
+                                         (2, 21, 70, 128, 96),
+                                         (3, 37, 17, 301, 255)])
 def test_scdm_kernel_matches_plain_on_cuda(B, T, N, Dh, Ds):
     args = [torch.from_numpy(a).cuda()
             for a in _scdm_inputs(N, B, T, N, Dh, Ds)]
@@ -110,6 +216,53 @@ def test_scdm_kernel_matches_plain_on_cuda(B, T, N, Dh, Ds):
     torch.cuda.synchronize()
     assert scdm_attention_fused.launches == before + 1
     assert (got - want).abs().max().item() <= K2_CUDA_TOL
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('B,T,N,Dh,Ds', [(64, 128, 15, 512, 512),
+                                         (5, 37, 17, 300, 256),
+                                         (2, 21, 70, 128, 96)])
+def test_scdm_kernel_keeps_p_and_gives_equal_bits_on_cuda(B, T, N, Dh, Ds):
+    args = [torch.from_numpy(a).cuda()
+            for a in _scdm_inputs(N, B, T, N, Dh, Ds)]
+    with torch.no_grad():
+        out, P = S._launch_forward(args, want_p=True)
+        again, P_again = S._launch_forward(args, want_p=True)
+        alone, no_p = S._launch_forward(args, want_p=False)
+        vp, sp, w, _ = args
+        act = torch.tanh(vp[:, :, None] + sp[:, None])
+        want_p = torch.softmax(torch.einsum('btnh,h->btn', act, w), -1)
+    torch.cuda.synchronize()
+    assert no_p is None and P.shape == (B, T, N)
+    assert torch.equal(out, again) and torch.equal(P, P_again)
+    assert torch.equal(out, alone)
+    assert (P - want_p).abs().max().item() <= P_CUDA_TOL
+
+
+def test_forward_tanh_on_the_cpu_is_torch_tanh():
+    x = torch.linspace(-12, 12, 1001)
+    assert torch.equal(S.forward_tanh(x), torch.tanh(x))
+
+
+@pytest.mark.requires_cuda
+def test_forward_tanh_is_within_its_stated_error_on_cuda():
+    """The kernel's branch-free tanh: within a few ulps of torch.tanh,
+    absolute (3e-7) and relative (1e-6), also as x -> 0 where its
+    polynomial takes over; odd, exact at 0 and saturating to +-1."""
+    small = torch.cat([torch.logspace(-30, math.log10(0.05), 1 << 20),
+                       torch.linspace(1e-4, 0.05, 1 << 20)])
+    x = torch.cat([torch.linspace(-12, 12, 1 << 22), small, -small,
+                   torch.tensor([0.0, 50.0, -50.0, 1e30, -1e30])]).cuda()
+    got, want = S.forward_tanh(x), torch.tanh(x)
+    assert (got - want).abs().max().item() <= 3e-7
+    nz = want != 0
+    rel = ((got - want)[nz] / want[nz]).abs()
+    assert rel.max().item() <= 1e-6
+    n = small.numel()
+    assert torch.equal(got[-5 - n:-5], -got[-5 - 2 * n:-5 - n])
+    assert got[-5].item() == 0.0
+    assert got[-4].item() == got[-2].item() == 1.0
+    assert got[-3].item() == got[-1].item() == -1.0
 
 
 @pytest.mark.requires_cuda
