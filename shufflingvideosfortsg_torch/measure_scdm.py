@@ -1,7 +1,9 @@
-"""Time K2's forward kernel (``scdm_attention_fused``) at the shapes the
-evaluation and training paths give it.
+"""Time K2's forward kernel (``scdm_attention_fused``), or K5's backward
+kernel (``scdm_attention_bwd_core``), at the shapes the evaluation and
+training paths give them.
 
     python -m shufflingvideosfortsg_torch.measure_scdm [--reps 20]
+    python -m shufflingvideosfortsg_torch.measure_scdm --bwd [--sweep]
 
 Prints the card's name and power limit, then one line a case: B, T, N, Dh,
 Ds, whether P is kept (the trainable form's forward, which K5's backward
@@ -14,15 +16,29 @@ the share of that. The cases are (32, 128, 15, 512,
 (32, 128, 40, 512, 512) and (8, 128, 40, 2048, 2048); the inputs come from
 ``np.random.RandomState(0)``.
 
+With ``--bwd``, one line a backward case, (64, 128, 15, 512), (64, 128,
+25, 512) and (8, 128, 40, 2048) as (B, T, N, Dh), at the forward's P and
+dP = G sent_feat^T of a 512- or 2048-wide context: the kernel's
+milliseconds, the plain core's (``scdm_attention_bwd_core_plain``, which
+materialises the [B, T, N, Dh] tanh), the two cuBLAS ``bmm`` that the
+backward runs beside the kernel (dP and d_sent_feat), the bound
+(:func:`scdm_bwd_bound`) and the floor of the tanh's design with the
+shares of both, and the launch the plan picks where the package has one
+(columns, rows, spans, blocks). ``--sweep`` adds a line a launch override
+(columns 32 to 256 by spans 1, 2 and 4).
+
 ``kernel_ms`` and ``plain_ms`` are device times: ``--reps`` calls captured
 in one CUDA graph, replayed after a warm-up and timed with CUDA events, so
 the host's enqueue rate does not enter. ``eager_ms`` times the same calls
 launched one by one from Python, as the models launch them.
 
-The file uses nothing of the package but ``scdm_attention_fused``,
-``scdm_attention_fused_trainable`` and ``scdm_attention_plain``, so another
-checkout's kernel is timed on the same inputs by copying this file into
-that checkout's package and running it there.
+The file uses nothing of the package but ``ops/scdm_fused``'s
+``scdm_attention_fused``, ``scdm_attention_fused_trainable``,
+``scdm_attention_plain``, ``scdm_attention_bwd_core`` and
+``scdm_attention_bwd_core_plain`` (and the plan where there is one, and
+for ``--sweep`` the private launch ``_launch_backward``), so
+another checkout's kernels are timed on the same inputs by copying this
+file into that checkout's package and running it there.
 """
 
 from __future__ import annotations
@@ -33,7 +49,10 @@ import subprocess
 import numpy as np
 import torch
 
-from .ops.scdm_fused import (scdm_attention_fused,
+from .ops import scdm_fused
+from .ops.scdm_fused import (scdm_attention_bwd_core,
+                             scdm_attention_bwd_core_plain,
+                             scdm_attention_fused,
                              scdm_attention_fused_trainable,
                              scdm_attention_plain)
 
@@ -51,6 +70,10 @@ TANH_SFU_OPS = 2
 CASES = ((32, 128, 15, 512, 512, False), (64, 128, 15, 512, 512, True),
          (32, 128, 25, 512, 512, False), (32, 128, 40, 512, 512, False),
          (8, 128, 40, 2048, 2048, False))
+# the backward's (B, T, N, Dh, Ds): the GMD train step's, N=25, and N=40 at
+# the widest width
+BWD_CASES = ((64, 128, 15, 512, 512), (64, 128, 25, 512, 512),
+             (8, 128, 40, 2048, 2048))
 
 
 def scdm_bound(B: int, T: int, N: int, Dh: int, Ds: int, keep_p: bool):
@@ -61,6 +84,22 @@ def scdm_bound(B: int, T: int, N: int, Dh: int, Ds: int, keep_p: bool):
     flops = B * T * N * 4 * Dh + B * T * N * 2 * Ds
     nbytes = 4 * (B * T * Dh + B * N * Dh + Dh + B * N * Ds + B * T * Ds
                   + (B * T * N if keep_p else 0))
+    return bound_ms(flops, nbytes)
+
+
+def scdm_bwd_bound(B: int, T: int, N: int, Dh: int):
+    """The least time of the backward kernel's function: (ms, 'operations'
+    or 'bytes'). Per (b,t,n,k) the add, the tanh, d_w's multiply-add, 1 -
+    a^2 (2), its product with dl and the sums into d_vp and d_sp, counted
+    as 10 f32 operations; video_proj, sent_proj, w, P and dP read once,
+    d_vp, d_sp and d_w written once."""
+    return bound_ms(10 * B * T * N * Dh,
+                    4 * (2 * (B * T * Dh + B * N * Dh + Dh) + 2 * B * T * N))
+
+
+def bound_ms(flops: float, nbytes: float):
+    """(ms, 'operations' or 'bytes'): the larger of flops over the f32
+    peak and bytes over the memory rate."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes')
@@ -146,9 +185,64 @@ def time_scdm(args, keep_p: bool, reps: int) -> dict:
                 pct_of_sfu_bound=f'{100 * sfu / ms:.1f}')
 
 
+def bwd_operands(B: int, T: int, N: int, Dh: int, Ds: int, device):
+    """(video_proj, sent_proj, w, P, dP, sent_feat, G) on ``device``: the
+    forward's inputs as :func:`operands`, P its plain softmax, G a normal
+    cotangent of the context from ``np.random.RandomState(1)`` and dP =
+    G sent_feat^T."""
+    vp, sp, w, sf = operands(B, T, N, Dh, Ds, device)
+    g_out = torch.from_numpy(np.random.RandomState(1).randn(
+        B, T, Ds).astype(np.float32)).to(device)
+    with torch.no_grad():
+        P = torch.softmax(torch.einsum(
+            'btnh,h->btn', torch.tanh(vp[:, :, None] + sp[:, None]), w), -1)
+        dP = torch.bmm(g_out, sf.transpose(1, 2))
+    return vp, sp, w, P, dP, sf, g_out
+
+
+def time_scdm_bwd(vp, sp, w, P, dP, sf, g_out, reps: int,
+                  **override) -> dict:
+    """The backward kernel's device time (with a launch ``override`` of
+    columns and spans where given) beside the plain core's and the two
+    ``bmm``'s, its bound (:func:`scdm_bwd_bound`), the floor of its tanh
+    design (:func:`sfu_bound_ms`) and the launch, as printable fields."""
+    B, T, Dh = vp.shape
+    N = sp.shape[1]
+    args = (vp, sp, w, P, dP)
+    fields = {}
+    core = scdm_attention_bwd_core
+    plan = getattr(scdm_fused, '_scdm_bwd_launch', None)
+    if plan is not None:
+        p = plan(B, T, N, Dh, vp.device.index or 0, **override)
+        fields.update(cols=p.cols, rows=p.rows, spans=p.spans,
+                      blocks=p.blocks, smem_bytes=p.smem_bytes)
+        if override:
+            def core(*a):
+                return scdm_fused._launch_backward(a, p)
+    with torch.no_grad():
+        ms = graph_ms(lambda: core(*args), reps)
+        if not override:
+            plain = graph_ms(lambda: scdm_attention_bwd_core_plain(*args), 5)
+            bmm = graph_ms(lambda: (torch.bmm(g_out, sf.transpose(1, 2)),
+                                    torch.bmm(P.transpose(1, 2), g_out)),
+                           reps)
+            fields.update(plain_ms=f'{plain:.4f}', bmm_ms=f'{bmm:.4f}')
+    b_ms, b_by = scdm_bwd_bound(B, T, N, Dh)
+    sms = torch.cuda.get_device_properties(vp.device).multi_processor_count
+    sfu = sfu_bound_ms(B, T, N, Dh, sms)
+    return dict(kernel_ms=f'{ms:.4f}', **fields, bound_ms=f'{b_ms:.4f}',
+                bound_by=b_by, pct_of_bound=f'{100 * b_ms / ms:.1f}',
+                sfu_bound_ms=f'{sfu:.4f}', tanh_sfu_ops=TANH_SFU_OPS,
+                pct_of_sfu_bound=f'{100 * sfu / ms:.1f}')
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--reps', type=int, default=20)
+    ap.add_argument('--bwd', action='store_true',
+                    help="time K5's backward kernel instead of K2")
+    ap.add_argument('--sweep', action='store_true',
+                    help='with --bwd, also every launch override')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('measure_scdm needs an NVIDIA GPU')
@@ -157,6 +251,20 @@ def main(argv=None) -> int:
                           '--format=csv,noheader'], check=True,
                          capture_output=True, text=True,
                          timeout=60).stdout.strip(), flush=True)
+    if args.bwd:
+        for B, T, N, Dh, Ds in BWD_CASES:
+            ops = bwd_operands(B, T, N, Dh, Ds, 'cuda')
+            overrides = [{}] + ([dict(cols=c, spans=n)
+                                 for c in (32, 64, 128, 256)
+                                 for n in (1, 2, 4)] if args.sweep else [])
+            for override in overrides:
+                fields = time_scdm_bwd(*ops, args.reps, **override)
+                print(f'[K5 bwd] B={B} T={T} N={N} Dh={Dh} '
+                      f'override={bool(override)} '
+                      + ' '.join(f'{k}={v}' for k, v in fields.items()),
+                      flush=True)
+            del ops
+        return 0
     for B, T, N, Dh, Ds, keep_p in CASES:
         fields = time_scdm(operands(B, T, N, Dh, Ds, 'cuda'), keep_p,
                            args.reps)

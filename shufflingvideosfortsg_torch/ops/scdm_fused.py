@@ -5,10 +5,11 @@ Counterpart of ``shufflingvideosfortsg_tpu/ops/pallas/scdm_fused.py``
 and of their plain formulation ``ops/attention.py::scdm_attention``. The
 CUDA kernels are in ``csrc/scdm.cu``: the forward (``scdm_fwd_kernel``,
 its tile of rows planned by :func:`_scdm_plan`), and K5's backward
-(``scdm_bwd_kernel``). :func:`scdm_attention_plain` is the broadcast-tanh
-version in PyTorch, and :func:`scdm_attention_bwd_plain` its gradients
-written out; the wrappers take them for CPU tensors, and the card's checks
-hold the kernels against them.
+(``scdm_bwd_kernel``, its blocks planned by :func:`_scdm_bwd_plan`).
+:func:`scdm_attention_plain` is the broadcast-tanh version in PyTorch,
+and :func:`scdm_attention_bwd_plain` its gradients written out; the
+wrappers take them for CPU tensors, and the card's checks hold the kernels
+against them.
 """
 
 from __future__ import annotations
@@ -23,10 +24,15 @@ from .. import _kernels
 
 Tensor = torch.Tensor
 
-_BWD_THREADS, _BWD_ROWS = 64, 32  # scdm_bwd_kernel's columns and tile rows
 # the tiles of rows t a forward block may take, largest first (the kernel
 # takes any multiple of 4 up to 32)
 _FWD_ROWS = (32, 16, 8, 4)
+# the columns k a backward block may take, and its tiles of rows t, largest
+# first; the plan asks for one block an SM at least: on an H100 the widest
+# blocks that give every SM one or two ran fastest, ahead of more, narrower
+# blocks or more spans (PERF.md §6)
+_BWD_COLS = (256, 128, 64, 32)
+_BWD_ROWS = (32, 16, 8, 4)
 
 
 def _check_inputs(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
@@ -204,14 +210,16 @@ def forward_tanh(x: Tensor) -> Tensor:
 
 
 def scdm_attention_bwd_core_plain(video_proj: Tensor, sent_proj: Tensor,
-                                  w: Tensor, P: Tensor, dP: Tensor
+                                  w: Tensor, P: Tensor, dP: Tensor,
+                                  tanh: Callable[[Tensor], Tensor] = torch.tanh
                                   ) -> Tuple[Tensor, Tensor, Tensor]:
     """The part of the backward that ``scdm_bwd_kernel`` computes, as
     PyTorch operations: from the softmax P [B, T, N] and its cotangent dP,
     dl = P (dP - sum_n P dP), then with a = tanh(vp[b,t] + sp[b,n])
     (materialised here, [B, T, N, Dh]) d_video_proj = w sum_n dl (1 - a^2),
-    d_sent_proj = w sum_t dl (1 - a^2) and d_w = sum_{b,t,n} dl a."""
-    act = torch.tanh(video_proj[:, :, None, :] + sent_proj[:, None, :, :])
+    d_sent_proj = w sum_t dl (1 - a^2) and d_w = sum_{b,t,n} dl a. ``tanh``
+    computes a (:func:`forward_tanh` gives the kernels' own)."""
+    act = tanh(video_proj[:, :, None, :] + sent_proj[:, None, :, :])
     dl = P * (dP - (P * dP).sum(-1, keepdim=True))
     du = dl[..., None] * (1.0 - act * act)
     return (du.sum(2) * w, du.sum(1) * w,
@@ -236,31 +244,96 @@ def scdm_attention_bwd_plain(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
             d_sf)
 
 
-def _bwd_spans(B: int, T: int, Dh: int, device: int,
-               t_split: Optional[int]) -> Tuple[int, int]:
-    """(spans of t, rows a span) of a backward launch: whole tiles of 32
-    rows a span, and by default as many spans as give the card about eight
-    blocks of 64 columns an SM, at most one a tile."""
-    tiles = -(-T // _BWD_ROWS)
-    if t_split is None:
-        blocks = B * -(-Dh // _BWD_THREADS)
-        t_split = -(-8 * _sm_count(device) // blocks)
-    t_split = max(1, min(t_split, tiles))
-    t_len = -(-tiles // t_split) * _BWD_ROWS
-    return -(-T // t_len), t_len
+class ScdmBwdPlan(NamedTuple):
+    """A backward launch: blocks of ``cols`` columns k of one batch row
+    over one of ``spans`` spans of ``t_len`` rows t (whole tiles), taken in
+    tiles of ``rows`` rows; ``blocks`` blocks of ``smem_bytes`` of shared
+    memory each."""
+    cols: int
+    rows: int
+    spans: int
+    t_len: int
+    blocks: int
+    smem_bytes: int
+
+
+def _scdm_bwd_plan(B: int, T: int, N: int, Dh: int, sms: int,
+                   smem_bytes: Callable[[int, int], int],
+                   smem_cap: int = _kernels.MAX_SMEM_BYTES,
+                   cols: Optional[int] = None,
+                   spans: Optional[int] = None) -> ScdmBwdPlan:
+    """The backward launch at (B, T, N, Dh) on a card of ``sms`` SMs that
+    gives a block ``smem_cap`` bytes of shared memory, where a block of
+    ``cols`` columns over tiles of ``rows`` rows takes ``smem_bytes(rows,
+    cols)`` bytes at this N (the kernel's layout, :func:`_scdm_bwd_smem_bytes`;
+    negative where it takes no such block).
+
+    Columns: of 256, 128, 64 and 32, the largest whose blocks (one a batch
+    row and chunk of columns) give every SM one and whose columns are less than half empty (cols < 2 Dh), else the
+    smallest. Rows: the largest tile of 32, 16, 8 or 4 rows that fits at
+    those columns and is less than half empty (rows < 2 T), else the
+    smallest that fits. Spans of t (whole tiles, one a block) are added
+    until the grid gives every SM a block, at most one a tile: one span
+    where the columns alone get there, so that d_sent_proj needs no sum
+    across blocks. Wide blocks form dl once for more columns; on an H100
+    they ran fastest (PERF.md §6). ``cols`` and ``spans`` override the
+    choice (for measurements). Raises where no block fits."""
+    choices = [c for c in _BWD_COLS if cols is None or c == cols]
+    fit = {}
+    for c in choices:
+        for r in _BWD_ROWS:
+            nbytes = smem_bytes(r, c)
+            if 0 < nbytes <= smem_cap:
+                fit[c, r] = nbytes
+    if not fit or sms < 1:
+        raise ValueError(f'scdm_attention_bwd: no block of {choices} columns '
+                         f'fits {smem_cap} bytes of shared memory at N={N} '
+                         f'on {sms} SMs')
+    target = sms
+    usable = [c for c in choices if any((c, r) in fit for r in _BWD_ROWS)]
+    col = next((c for c in usable
+                if B * -(-Dh // c) >= target and c < 2 * Dh), usable[-1])
+    chunks = B * -(-Dh // col)
+    row_opts = [r for r in _BWD_ROWS if (col, r) in fit]
+    rows = next((r for r in row_opts if r < 2 * T), row_opts[-1])
+    tiles = -(-T // rows)
+    if spans is None:
+        spans = -(-target // chunks)
+    t_len = -(-tiles // max(1, min(spans, tiles))) * rows
+    spans = -(-T // t_len)
+    return ScdmBwdPlan(col, rows, spans, t_len, spans * chunks,
+                       fit[col, rows])
+
+
+def _scdm_bwd_smem_bytes(rows: int, cols: int, N: int) -> int:
+    """Shared memory of a backward block of ``cols`` columns over tiles of
+    ``rows`` rows at N words, as ``csrc/scdm.cu`` lays it out
+    (``svtsg_scdm_bwd_smem_bytes``); -1 where the kernel takes no such
+    block."""
+    return _kernels.library().svtsg_scdm_bwd_smem_bytes(rows, cols, N)
+
+
+@functools.lru_cache(maxsize=None)
+def _scdm_bwd_launch(B: int, T: int, N: int, Dh: int, device: int,
+                     cols: Optional[int] = None,
+                     spans: Optional[int] = None) -> ScdmBwdPlan:
+    """The backward launch at (B, T, N, Dh) on the card ``device``;
+    ``cols`` and ``spans`` override the plan's choice (for measurements)."""
+    return _scdm_bwd_plan(B, T, N, Dh, _sm_count(device),
+                          lambda rows, c: _scdm_bwd_smem_bytes(rows, c, N),
+                          cols=cols, spans=spans)
 
 
 def scdm_attention_bwd_core(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
-                            P: Tensor, dP: Tensor,
-                            t_split: Optional[int] = None
+                            P: Tensor, dP: Tensor
                             ) -> Tuple[Tensor, Tensor, Tensor]:
     """K5's backward kernel: (d_video_proj, d_sent_proj, d_w) from the
     forward's inputs, its softmax P and dP, as
     :func:`scdm_attention_bwd_core_plain`, which CPU tensors take. CUDA
-    tensors launch ``scdm_bwd_kernel`` or raise (contiguous f32 on one
-    card, any shape); its partial sums over spans of t and batch rows are
-    added in a fixed order here, so two runs give equal bits. ``t_split``
-    overrides the number of spans (for measurements)."""
+    tensors launch ``scdm_bwd_kernel`` once or raise (contiguous f32 on one
+    card, any shape), with the blocks :func:`_scdm_bwd_plan` picks. The
+    partial sums over spans of t and batch rows are added in a fixed order,
+    so two runs give equal bits."""
     B, T, Dh = video_proj.shape
     N = sent_proj.shape[1]
     for name, t in (('P', P), ('dP', dP)):
@@ -271,17 +344,29 @@ def scdm_attention_bwd_core(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     if all(a.device.type == 'cpu' for a in args):
         return scdm_attention_bwd_core_plain(*args)
     dev = _cuda_device('scdm_attention_bwd', args)
-    spans, t_len = _bwd_spans(B, T, Dh, _device_index(dev), t_split)
+    return _launch_backward(args, _scdm_bwd_launch(B, T, N, Dh,
+                                                   _device_index(dev)))
+
+
+def _launch_backward(args: Tuple[Tensor, ...], plan: ScdmBwdPlan
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """``scdm_bwd_kernel`` once over the checked CUDA ``args`` (video_proj,
+    sent_proj, w, P, dP) with the blocks of ``plan``, and the fixed-order
+    sums of its partials."""
+    B, T, Dh = args[0].shape
+    N = args[1].shape[1]
+    dev = args[0].device
+    index = _device_index(dev)
     f32 = dict(device=dev, dtype=torch.float32)
     d_vp = torch.empty(B, T, Dh, **f32)
-    d_sp = torch.empty(spans, B, N, Dh, **f32)
-    d_w = torch.empty(spans * B, Dh, **f32)
+    d_sp = torch.empty(plan.spans, B, N, Dh, **f32)
+    d_w = torch.empty(plan.spans * B, Dh, **f32)
     err = _kernels.library().svtsg_scdm_bwd(
         *(a.data_ptr() for a in args), d_vp.data_ptr(), d_sp.data_ptr(),
-        d_w.data_ptr(), B, T, N, Dh, spans, t_len, _device_index(dev),
-        _stream(dev))
+        d_w.data_ptr(), B, T, N, Dh, plan.cols, plan.rows, plan.spans,
+        plan.t_len, index, _stream(dev))
     _kernels.check(err, 'scdm_attention_bwd')
-    return d_vp, d_sp[0] if spans == 1 else d_sp.sum(0), d_w.sum(0)
+    return d_vp, d_sp[0] if plan.spans == 1 else d_sp.sum(0), d_w.sum(0)
 
 
 def scdm_attention_bwd(video_proj: Tensor, sent_proj: Tensor, w: Tensor,

@@ -189,6 +189,123 @@ def test_scdm_smem_bytes_and_plan_on_cuda():
             assert 4 * (plan.smem_bytes + 1024) <= 228 * 1024
 
 
+BWD_PLAN_SHAPES = [(64, 128, 15, 512), (64, 128, 25, 512),
+                   (8, 128, 40, 2048), (32, 128, 15, 512), (3, 37, 17, 301),
+                   (1, 1, 1, 1), (2, 9, 70, 100), (1000, 1, 3, 8),
+                   (4, 200, 33, 300), (128, 128, 15, 512)]
+
+
+def _stand_in_bwd_smem(N):
+    """A backward block's shared memory for the plan's tests on the CPU:
+    a ring of three stages of rows x (cols + 4) floats and the rows of P
+    and dP, as the kernel's layout grows (that layout,
+    ``svtsg_scdm_bwd_smem_bytes``, is held by the CUDA test below)."""
+    return lambda rows, cols: 12 * (rows * (cols + 4) + 2 * rows * N) + 9_000
+
+
+@pytest.mark.parametrize('sms', [132, 114, 1])
+@pytest.mark.parametrize('B,T,N,Dh', BWD_PLAN_SHAPES)
+def test_scdm_bwd_plan_covers_t_and_fits_shared_memory(B, T, N, Dh, sms):
+    smem = _stand_in_bwd_smem(N)
+    plan = S._scdm_bwd_plan(B, T, N, Dh, sms, smem)
+    assert plan.cols in S._BWD_COLS and plan.rows in S._BWD_ROWS
+    # the spans are whole tiles and cover T, none of them empty
+    assert plan.t_len % plan.rows == 0
+    assert plan.spans * plan.t_len >= T > (plan.spans - 1) * plan.t_len
+    assert plan.blocks == plan.spans * B * -(-Dh // plan.cols)
+    assert plan.smem_bytes == smem(plan.rows, plan.cols)
+    assert plan.smem_bytes <= _kernels.MAX_SMEM_BYTES
+    target = sms
+    chunks = B * -(-Dh // plan.cols)
+    # the largest columns that fill the card, or the smallest
+    for c in S._BWD_COLS:
+        if c > plan.cols:
+            assert B * -(-Dh // c) < target or c >= 2 * Dh
+    # one span where the columns fill the card, else at most one a tile
+    if chunks >= target:
+        assert plan.spans == 1
+    else:
+        assert plan.blocks >= target or plan.t_len == plan.rows
+
+
+@pytest.mark.parametrize('B,T,N,Dh', [(64, 128, 15, 512), (64, 128, 25, 512),
+                                      (8, 128, 40, 2048),
+                                      (32, 128, 15, 512)])
+def test_scdm_bwd_plan_fills_the_card_at_the_main_shapes(B, T, N, Dh):
+    """The GMD train step (B=64 at N=15, 25), B=32 and N=40 at Dh=2048:
+    blocks of 64 or more columns, about two an SM of an H100 (256 blocks
+    on 132 SMs), tiles of 32 rows, and one span, so that d_sent_proj needs
+    no sum across blocks."""
+    plan = S._scdm_bwd_plan(B, T, N, Dh, H100_SMS, _stand_in_bwd_smem(N))
+    assert plan.blocks == 256 >= H100_SMS
+    assert plan.cols >= 64 and plan.rows == 32 and plan.spans == 1
+    if B == 64 and Dh == 512:
+        assert plan.cols == 128
+
+
+@pytest.mark.parametrize('cols,spans', [(32, 1), (64, 2), (256, 4),
+                                        (128, 100), (None, 3), (64, None)])
+def test_scdm_bwd_plan_takes_the_overrides(cols, spans):
+    plan = S._scdm_bwd_plan(64, 128, 15, 512, H100_SMS,
+                            _stand_in_bwd_smem(15), cols=cols, spans=spans)
+    if cols is not None:
+        assert plan.cols == cols
+    if spans is not None:
+        # spans of equal whole tiles: 3 spans of 4 tiles are 2 of 2
+        tiles = 128 // plan.rows
+        assert plan.spans == -(-tiles // -(-tiles // min(spans, tiles)))
+    assert plan.spans * plan.t_len >= 128
+
+
+def test_scdm_bwd_plan_shrinks_the_tile_to_fit_shared_memory():
+    # the tile's rows of P and dP outgrow the shared memory for long
+    # sentences: fewer rows a tile, then fewer columns
+    N = 600
+    smem = _stand_in_bwd_smem(N)
+    assert smem(32, 32) > _kernels.MAX_SMEM_BYTES
+    plan = S._scdm_bwd_plan(64, 128, N, 512, H100_SMS, smem)
+    assert plan.rows < 32 and plan.smem_bytes <= _kernels.MAX_SMEM_BYTES
+    # a block the kernel does not take (-1) is never planned
+    plan = S._scdm_bwd_plan(
+        64, 128, 15, 512, H100_SMS,
+        lambda rows, cols: -1 if cols == 128 or rows == 32 else 40_000)
+    assert plan.cols == 64 and plan.rows == 16
+    with pytest.raises(ValueError, match='shared memory'):
+        S._scdm_bwd_plan(8, 128, 100000, 512, H100_SMS,
+                         _stand_in_bwd_smem(100000))
+    with pytest.raises(ValueError, match='shared memory'):
+        S._scdm_bwd_plan(8, 128, 15, 512, H100_SMS, _stand_in_bwd_smem(15),
+                         smem_cap=1024)
+    with pytest.raises(ValueError, match='shared memory'):
+        S._scdm_bwd_plan(8, 128, 15, 512, H100_SMS, _stand_in_bwd_smem(15),
+                         cols=48)
+
+
+@pytest.mark.requires_cuda
+def test_scdm_bwd_smem_bytes_and_plan_on_cuda():
+    """The backward kernel's own layout (``svtsg_scdm_bwd_smem_bytes``): it
+    grows with the rows, the columns and the words, takes 1 to 32 rows and
+    32, 64, 128 or 256 columns, lets three blocks share an SM at the main
+    shapes, and the plan keeps it within the card's shared memory."""
+    for N in (1, 15, 17, 33, 70, 600):
+        for cols in S._BWD_COLS:
+            sizes = [S._scdm_bwd_smem_bytes(r, cols, N) for r in range(1, 33)]
+            assert all(0 < a < b for a, b in zip(sizes, sizes[1:]))
+        assert S._scdm_bwd_smem_bytes(32, 64, N) < \
+            S._scdm_bwd_smem_bytes(32, 128, N)
+    for rows, cols, N in ((0, 32, 15), (33, 32, 15), (32, 48, 15),
+                          (32, 512, 15), (32, 16, 15), (32, 32, 0)):
+        assert S._scdm_bwd_smem_bytes(rows, cols, N) == -1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, T, N, Dh in BWD_PLAN_SHAPES + [(64, 128, 600, 512)]:
+        plan = S._scdm_bwd_plan(
+            B, T, N, Dh, sms, lambda r, c: S._scdm_bwd_smem_bytes(r, c, N))
+        assert 0 < plan.smem_bytes <= _kernels.MAX_SMEM_BYTES
+        if (B, T) == (64, 128) and N <= 25:
+            # 228 KB an SM, 1 KB of it reserved a block
+            assert 3 * (plan.smem_bytes + 1024) <= 228 * 1024
+
+
 # --- on the card -----------------------------------------------------------
 
 K1_CUDA_TOL = 1e-4  # f32 sums over H in another order, across T dependent steps

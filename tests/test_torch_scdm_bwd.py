@@ -15,10 +15,11 @@ import pytest
 import torch
 
 from shufflingvideosfortsg_torch.ops.scdm_fused import (
-    _ScdmAttentionTrainable, scdm_attention_bwd, scdm_attention_bwd_core,
-    scdm_attention_bwd_core_plain, scdm_attention_bwd_plain,
-    scdm_attention_fused, scdm_attention_fused_trainable,
-    scdm_attention_plain)
+    _launch_backward, _scdm_bwd_launch, _ScdmAttentionTrainable,
+    forward_tanh, scdm_attention_bwd,
+    scdm_attention_bwd_core, scdm_attention_bwd_core_plain,
+    scdm_attention_bwd_plain, scdm_attention_fused,
+    scdm_attention_fused_trainable, scdm_attention_plain)
 
 TOL = 1e-5  # f32, sums in another order than XLA's
 NAMES = ('video_proj', 'sent_proj', 'w', 'sent_feat')
@@ -181,9 +182,78 @@ def test_k5_backward_kernel_is_deterministic_and_matches_its_core():
     for a, b in zip(*runs):
         assert torch.equal(a, b)
     dP = torch.bmm(g_out, sf.transpose(1, 2))
-    for t_split in (1, 2, 4):
-        got = scdm_attention_bwd_core(vp, sp, w, P, dP, t_split=t_split)
-        want = scdm_attention_bwd_core_plain(vp, sp, w, P, dP)
-        # the core's outputs are the first three: d_video_proj,
-        # d_sent_proj, d_w
-        _assert_grads_close(got, want, f't_split={t_split}')
+    default = scdm_attention_bwd_core(vp, sp, w, P, dP)
+    want = scdm_attention_bwd_core_plain(vp, sp, w, P, dP)
+    # the core's outputs are the first three: d_video_proj, d_sent_proj, d_w
+    _assert_grads_close(default, want, 'at the plan')
+    for cols in (32, 64, 128, 256):
+        for spans in (1, 2, 4):
+            got = _launch_backward((vp, sp, w, P, dP), _scdm_bwd_launch(
+                B, T, N, Dh, 0, cols=cols, spans=spans))
+            what = f'cols={cols} spans={spans}'
+            _assert_grads_close(got, default, what)
+            _assert_grads_close(got, want, what)
+
+
+def _core_inputs(seed, B, T, N, Dh):
+    """(video_proj, sent_proj, w, P, dP) on the card: P the plain softmax,
+    dP from a cotangent of a 64-wide context."""
+    *arrays, g_out = (torch.from_numpy(a).cuda()
+                      for a in _inputs(seed, B, T, N, Dh, 64))
+    vp, sp, w, sf = arrays
+    P = torch.softmax(torch.einsum(
+        'btnh,h->btn', torch.tanh(vp[:, :, None] + sp[:, None]), w), -1)
+    return vp, sp, w, P, torch.bmm(g_out, sf.transpose(1, 2))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('Dh', [300, 301, 2048])
+@pytest.mark.parametrize('N', [1, 15, 16, 17, 25, 32, 33, 40, 70])
+def test_k5_backward_kernel_matches_its_core_at_any_n_and_width_on_cuda(
+        N, Dh):
+    """Words in one pass (N <= 32, dead slots up to the next multiple of
+    4) or in equal passes (33, 40, 70), 4-byte copies (Dh = 301), a
+    ragged last tile (T = 37)."""
+    args = _core_inputs(N + Dh, 3, 37, N, Dh)
+    got = scdm_attention_bwd_core(*args)
+    want = scdm_attention_bwd_core_plain(*args)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, f'N={N} Dh={Dh}')
+
+
+def _fwd_tanh(x):
+    return forward_tanh(x.contiguous())
+
+
+@pytest.mark.requires_cuda
+def test_k5_backward_kernel_differentiates_the_forward_tanh_on_cuda():
+    """The kernel recomputes a with the forward's tanh (tanh_fwd): the
+    plain formulas over a from :func:`forward_tanh` agree with it within
+    1e-5 of each output's largest element. At the points of [-1.5, -0.6]
+    where it differs most from :func:`torch.tanh` (there |a| < 0.91 keeps
+    the rounding of dl - dl a² small), as sent_proj, with video_proj 0 and
+    few terms a sum, each output lies at most half as far from the plain
+    formulas over :func:`forward_tanh` as from those over
+    :func:`torch.tanh`."""
+    args = _core_inputs(7, 8, 128, 15, 512)
+    got = scdm_attention_bwd_core(*args)
+    want = scdm_attention_bwd_core_plain(*args, tanh=_fwd_tanh)
+    torch.cuda.synchronize()
+    for name, g, w in zip(NAMES, got, want):
+        assert (g - w).abs().max().item() <= \
+            1e-5 * w.abs().max().item(), name
+    B, T, N, Dh = 2, 4, 4, 512
+    vp, sp, w, P, dP = _core_inputs(8, B, T, N, Dh)
+    x = torch.linspace(-1.5, -0.6, 1 << 20, device='cuda')
+    gap = (forward_tanh(x) - torch.tanh(x)).abs()
+    x = x[gap.topk(B * N * Dh).indices]
+    order = np.random.RandomState(9).permutation(x.numel())
+    sp = x[torch.from_numpy(order).cuda()].reshape(B, N, Dh)
+    args = (torch.zeros_like(vp), sp, w, P, dP)
+    got = scdm_attention_bwd_core(*args)
+    own = scdm_attention_bwd_core_plain(*args, tanh=_fwd_tanh)
+    lib = scdm_attention_bwd_core_plain(*args, tanh=torch.tanh)
+    torch.cuda.synchronize()
+    for name, g, o, lb in zip(NAMES, got, own, lib):
+        assert (g - o).abs().sum().item() <= \
+            0.5 * (g - lb).abs().sum().item(), name
