@@ -9,8 +9,20 @@ and ``parse_params`` (``:50-105``, the same flags and merge rules, plus
 
 ``--device`` defaults to ``cuda``; without a card the drivers raise rather
 than run on the CPU. ``--device cpu`` runs the kernels' plain versions.
-Not ported yet, and refused: ``eval_topk > 1``, featpack feature
-directories (with the resident bank and its grouped and chunked loops),
+
+A featpack feature directory puts its pack on the device
+(``data/device_bank.maybe_device_bank``, unless ``device_bank`` is off,
+the pack is over ``device_bank_max_gb`` or a train set has ``if_aug``):
+batches then carry indices and are assembled on the device. An evaluation
+with such a bank (``_banked_eval_epoch``, JAX ``cli.py:390``) uploads the
+index arrays of the whole split once and runs ``eval_scan_group`` loader
+batches a tick as one ``[G*B]`` pass; on a card each tick is one replay
+of a CUDA graph, the port's counterpart of JAX's ``lax.scan`` over the
+epoch. GMD's valid pass (its pseudo videos come from a
+``torch.Generator``) and training run one batch at a time with the
+assembly on the device, whatever ``train_scan_chunk`` says.
+
+Not ported yet, and refused: ``eval_topk > 1``,
 ``precision: bf16``, and in training ``multi_seed``, ``pipeline_stages``,
 ``tensor_parallel``, ``fsdp``, ``grad_accum_steps > 1``,
 ``async_checkpoint`` and ``--start_from auto``. A non-finite training
@@ -31,6 +43,7 @@ import numpy as np
 import torch
 
 from .config import DEFAULTS, load_config
+from .data.device_bank import INDEX_KEYS, maybe_device_bank
 from .data.pipeline import BatchLoader, SentenceGroundingDataset
 from .eval.iou import retrieval_eval
 from .models.build import build_model
@@ -207,12 +220,140 @@ def _refuse_unported_training(params: Dict[str, Any]) -> None:
                                   'PyTorch trainer yet')
 
 
-def _avg(metrics_list, key) -> float:
-    return float(np.mean([float(m[key]) for m in metrics_list]))
+def _avg(fetched: Dict[str, np.ndarray], key) -> float:
+    return float(np.mean([float(m) for m in fetched[key]]))
 
 
-def _fetch(outs: List[Dict[str, torch.Tensor]]) -> List[Dict[str, np.ndarray]]:
-    return [{k: v.cpu().numpy() for k, v in o.items()} for o in outs]
+def _fetch(outs: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+    """Per-batch outputs -> {key: [n_batches, ...]} on the host."""
+    return {k: torch.stack([o[k] for o in outs]).cpu().numpy()
+            for k in outs[0]}
+
+
+def _device_batch(batch, device: torch.device, keys, bank):
+    """A host batch on the device: ``keys`` of it, or with a bank its
+    index keys with the bank's tensors attached."""
+    if bank is None:
+        return to_device(batch, device, keys)
+    return bank.attach(to_device(batch, device, INDEX_KEYS))
+
+
+class _GraphedTick:
+    """One CUDA graph of ``fn`` (a dict of tensors -> a dict of tensors)
+    over static input buffers shaped like ``example``. The warm-up runs on
+    a side stream first: it builds the kernels, fills the launch plans'
+    caches and creates the cuBLAS handles, none of which a capture may do.
+    A call copies its inputs into the buffers on the device and replays;
+    the outputs are the graph's static tensors, overwritten by the next
+    replay."""
+
+    WARMUP = 2  # runs before the capture
+
+    def __init__(self, fn, example: Dict[str, torch.Tensor]):
+        self.static_in = {k: v.clone() for k, v in example.items()}
+        side = torch.cuda.Stream(device=next(iter(example.values())).device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                fn(self.static_in)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=side):
+            self.static_out = fn(self.static_in)
+
+    def __call__(self, inputs: Dict[str, torch.Tensor]):
+        for k, v in inputs.items():
+            self.static_in[k].copy_(v)
+        self.graph.replay()
+        return self.static_out
+
+
+def _banked_eval_epoch(step, host_batches, bank, device: torch.device,
+                       timer: Optional['_PhaseTimer'] = None,
+                       group: int = 1, graphed: bool = True
+                       ) -> Dict[str, np.ndarray]:
+    """A whole eval epoch on a device bank (JAX ``cli.py:390``): the index
+    arrays of every batch go up once as [n_ticks, G, B, ...] (the last
+    tick padded by repeating the last batch), each tick runs
+    ``step.grouped`` on G batches (the bank's assembly, the [G*B] pass,
+    the per-batch means) and its outputs are copied on the device into
+    [n_ticks, ...] results, fetched once at the end and cut back to the
+    real batches.
+
+    On a card with ``graphed`` the tick is a CUDA graph
+    (:class:`_GraphedTick`), captured once per (tick shapes, bank) and
+    kept on the step with its memory pool; a failed capture raises.
+    Otherwise (the CPU, or ``graphed=False``) the same tick runs
+    eagerly."""
+
+    def mark(name):
+        if timer is not None:
+            timer.mark(name)
+
+    arrays = {k: np.stack([np.asarray(b[k]) for b in host_batches])
+              for k in INDEX_KEYS}
+    n_real = len(host_batches)
+    group = max(1, min(int(group), n_real))
+    pad = -n_real % group
+    if pad:
+        arrays = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
+                  for k, v in arrays.items()}
+    arrays = {k: v.reshape((-1, group) + v.shape[1:])
+              for k, v in arrays.items()}
+    mark('eval_stack')
+    dev = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    mark('eval_upload')
+    n_ticks = next(iter(dev.values())).shape[0]
+
+    def tick_fn(tick):
+        return step.grouped(bank.attach(tick))
+
+    run = tick_fn
+    if graphed and device.type == 'cuda':
+        cache = step.__dict__.setdefault('graphs', {})
+        key = (tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in dev.items()),
+               bank.key(), bank.feats.data_ptr())
+        if key not in cache:
+            cache[key] = _GraphedTick(tick_fn, {k: v[0] for k, v in
+                                                dev.items()})
+        run = cache[key]
+    mark('eval_build')
+    results = None
+    for i in range(n_ticks):
+        out = run({k: v[i] for k, v in dev.items()})
+        if results is None:
+            results = {k: torch.empty((n_ticks,) + v.shape, dtype=v.dtype,
+                                      device=v.device)
+                       for k, v in out.items()}
+        for k, v in out.items():
+            results[k][i].copy_(v)
+    fetched = {k: v.cpu().numpy() for k, v in results.items()}
+    fetched = {k: v.reshape((-1,) + v.shape[2:])[:n_real]
+               for k, v in fetched.items()}
+    mark('eval_exec')
+    return fetched
+
+
+def _eval_epoch(step, loader, bank, device: torch.device,
+                keys=STEP_KEYS, generator: Optional[torch.Generator] = None,
+                timer: Optional['_PhaseTimer'] = None, group: int = 1,
+                _graphed: bool = True):
+    """One eval pass over ``loader``: (host batches, {key: [n_batches,
+    ...]} on the host). With a bank and a step that has a grouped pass,
+    :func:`_banked_eval_epoch`; otherwise batch by batch (assembled on the
+    device where there is a bank), fetched once. ``generator`` feeds a
+    valid step's pseudo-video draws. ``_graphed=False`` runs the banked
+    epoch's ticks without a graph (for comparisons)."""
+    if bank is not None and generator is None and hasattr(step, 'grouped'):
+        host_batches = list(loader)
+        return host_batches, _banked_eval_epoch(
+            step, host_batches, bank, device, timer, group, _graphed)
+    host_batches, outs = [], []
+    for batch in loader:
+        host_batches.append(batch)
+        b = _device_batch(batch, device, keys, bank)
+        outs.append(step(b) if generator is None else step(b, generator))
+    return host_batches, _fetch(outs)
 
 
 def main_train(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -222,16 +363,18 @@ def main_train(params: Dict[str, Any]) -> Dict[str, Any]:
     end. Returns the loss/mIoU statistics it prints."""
     host_pair = not params.get('on_device_aug', True)
 
-    def steps(model, state, lg, device):
-        valid_step = make_gmd_valid_step(model, params, lg)
+    def steps(model, state, lg, device, train_bank, valid_bank):
+        valid_step = make_gmd_valid_step(model, params, lg,
+                                         _assembler(valid_bank))
         # validation draws its pseudo videos from a stream of its own
         valid_gen = torch.Generator(device).manual_seed(
             params.get('seed', 123) + 0x5a11d)
 
         def validate(loader, logger, epoch, saver):
             return run_valid(valid_step, loader, params, logger, epoch, saver,
-                             device, valid_gen)
-        return make_gmd_train_step(model, state, params, lg), validate
+                             device, valid_gen, valid_bank)
+        return make_gmd_train_step(model, state, params, lg,
+                                   _assembler(train_bank)), validate
 
     return _train(params, 'gmd', steps,
                   HOST_PAIR_KEYS if host_pair else TRAIN_KEYS,
@@ -244,13 +387,15 @@ def main_train_baseline(params: Dict[str, Any]) -> Dict[str, Any]:
     :func:`main_train`'s epochs, valid passes (:func:`run_eval_collect`),
     checkpoints and statistics."""
 
-    def steps(model, state, lg, device):
-        eval_step = make_baseline_eval_step(model, lg)
+    def steps(model, state, lg, device, train_bank, valid_bank):
+        eval_step = make_baseline_eval_step(model, lg,
+                                            _assembler(valid_bank))
 
         def validate(loader, logger, epoch, saver):
             return run_eval_collect(eval_step, loader, params, logger, epoch,
-                                    saver, device, 'val_data')
-        return make_baseline_train_step(model, state, params, lg), validate
+                                    saver, device, 'val_data', valid_bank)
+        return make_baseline_train_step(model, state, params, lg,
+                                        _assembler(train_bank)), validate
 
     return _train(params, 'baseline', steps, STEP_KEYS, ('miou',))
 
@@ -258,9 +403,11 @@ def main_train_baseline(params: Dict[str, Any]) -> Dict[str, Any]:
 def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
            host_pair: bool = False) -> Dict[str, Any]:
     """The training loop shared by the drivers. ``steps(model, state, lg,
-    device)`` returns (train_step, validate); ``keys`` are the batch keys
-    a train step reads and ``terms`` the metrics it logs beside the loss;
-    ``host_pair`` has the loader make the pseudo videos."""
+    device, train_bank, valid_bank)`` returns (train_step, validate);
+    ``keys`` are the batch keys a train step reads without a bank and
+    ``terms`` the metrics it logs beside the loss; ``host_pair`` has the
+    loader make the pseudo videos (and keeps the train set off the
+    bank)."""
     device = resolve_device(params.get('device', 'cuda'))
     _refuse_unported_training(params)
     logger = setup_logger(params['alias'])
@@ -271,17 +418,23 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
     model = _seeded_model(params, device, kind)
     train_set = make_dataset(params, 'train_data', 'train_featpath', 'train')
     valid_set = make_dataset(params, 'val_data', 'valid_featpath', 'valid')
+    train_bank = None if host_pair else \
+        maybe_device_bank(params, train_set, device, logger)
+    valid_bank = maybe_device_bank(params, valid_set, device, logger)
     train_loader = BatchLoader(train_set, params['batch_size'][0],
                                shuffle=True, seed=seed,
-                               host_pair_aug=host_pair)
+                               host_pair_aug=host_pair,
+                               device_assemble=train_bank is not None)
     valid_loader = BatchLoader(valid_set, params['batch_size'][2],
-                               shuffle=False)
+                               shuffle=False,
+                               device_assemble=valid_bank is not None)
     if params.get('start_from'):
         model.load_state_dict(load_reference_ckp(params['start_from']))
         logger.warning('resume from checkpoint: %s (weights only)',
                        params['start_from'])
     state = TrainState(model, params, steps_per_epoch=len(train_loader))
-    train_step, validate = steps(model, state, lg, device)
+    train_step, validate = steps(model, state, lg, device, train_bank,
+                                 valid_bank)
     train_gen = torch.Generator(device).manual_seed(seed)
 
     statistics = {'loss': {}, 'mIoU': {}}
@@ -292,7 +445,8 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
         outs = []
         for idx, batch in enumerate(train_loader):
             t_b = time.time()
-            metrics = train_step(to_device(batch, device, keys), train_gen)
+            metrics = train_step(
+                _device_batch(batch, device, keys, train_bank), train_gen)
             outs.append(metrics)
             do_log = log_iv != -1 and idx % log_iv == 0
             if do_log or idx % check_iv == 0:
@@ -333,18 +487,17 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
 
 def run_valid(valid_step, loader, params, logger, epoch: int,
               saver: Optional[RunManager], device: torch.device,
-              generator: torch.Generator) -> float:
-    """One valid pass: losses, the submit JSON, the mean IoU it returns."""
+              generator: torch.Generator, bank=None) -> float:
+    """One valid pass: losses, the submit JSON, the mean IoU it returns.
+    The pseudo videos come from ``generator``, so the pass runs batch by
+    batch, assembled on the device where there is a ``bank``."""
     pred_dict = _new_pred_dict(params)
     t0 = time.time()
-    host_batches, outs = [], []
-    for batch in loader:
-        host_batches.append(batch)
-        outs.append(valid_step(to_device(batch, device, TRAIN_KEYS),
-                               generator))
-    fetched = _fetch(outs)
-    for batch, f in zip(host_batches, fetched):
-        _collect_predictions(pred_dict, batch, f['pred_time'], f['score'])
+    host_batches, fetched = _eval_epoch(valid_step, loader, bank, device,
+                                        TRAIN_KEYS, generator)
+    for i, batch in enumerate(host_batches):
+        _collect_predictions(pred_dict, batch, fetched['pred_time'][i],
+                             fetched['score'][i])
     if saver is not None:
         saver.save_submits(pred_dict, epoch, 'val_data')
     miou = _avg(fetched, 'miou')
@@ -358,18 +511,18 @@ def run_valid(valid_step, loader, params, logger, epoch: int,
 
 def run_eval_collect(eval_step, loader, params, logger, epoch: int,
                      saver: Optional[RunManager], device: torch.device,
-                     submit_key: str) -> float:
+                     submit_key: str, bank=None) -> float:
     """The baseline's valid pass: the submit JSON under ``submit_key``'s
-    split and the mean IoU it returns."""
+    split and the mean IoU it returns; on a ``bank``, the banked epoch of
+    :func:`_eval_epoch`."""
     pred_dict = _new_pred_dict(params)
     t0 = time.time()
-    host_batches, outs = [], []
-    for batch in loader:
-        host_batches.append(batch)
-        outs.append(eval_step(to_device(batch, device)))
-    fetched = _fetch(outs)
-    for batch, f in zip(host_batches, fetched):
-        _collect_predictions(pred_dict, batch, f['pred_time'], f['score'])
+    host_batches, fetched = _eval_epoch(
+        eval_step, loader, bank, device,
+        group=int(params.get('eval_scan_group', 8)))
+    for i, batch in enumerate(host_batches):
+        _collect_predictions(pred_dict, batch, fetched['pred_time'][i],
+                             fetched['score'][i])
     if saver is not None:
         saver.save_submits(pred_dict, epoch, submit_key)
     miou = _avg(fetched, 'miou')
@@ -391,18 +544,24 @@ def _print_statistics(statistics) -> None:
                   keys[vals.index(max(vals))])
 
 
-def main_test(params: Dict[str, Any]) -> str:
+def main_test(params: Dict[str, Any], _graphed: bool = True) -> str:
     """Evaluate GMD on ``test_data``: write the submit JSON (and its
-    ``.metrics.json``), print the retrieval table, return the submit path."""
-    return _test(params, 'gmd', make_gmd_test_step)
+    ``.metrics.json``), print the retrieval table, return the submit path.
+    ``_graphed=False`` runs a banked epoch's ticks without CUDA graphs."""
+    return _test(params, 'gmd', make_gmd_test_step, _graphed)
 
 
-def main_test_baseline(params: Dict[str, Any]) -> str:
+def main_test_baseline(params: Dict[str, Any], _graphed: bool = True) -> str:
     """:func:`main_test` for the QAVE baseline."""
-    return _test(params, 'baseline', make_baseline_eval_step)
+    return _test(params, 'baseline', make_baseline_eval_step, _graphed)
 
 
-def _test(params: Dict[str, Any], kind: str, make_step) -> str:
+def _assembler(bank):
+    return None if bank is None else bank.assemble
+
+
+def _test(params: Dict[str, Any], kind: str, make_step,
+          _graphed: bool = True) -> str:
     device = resolve_device(params.get('device', 'cuda'))
     if int(params.get('eval_topk', 1) or 1) > 1:
         raise NotImplementedError('eval_topk > 1 is not ported yet')
@@ -414,31 +573,33 @@ def _test(params: Dict[str, Any], kind: str, make_step) -> str:
     model = _seeded_model(params, torch.device('cpu'), kind)
     pt.mark('setup')
     test_set = make_dataset(params, 'test_data', 'test_featpath', 'test')
-    test_loader = BatchLoader(test_set, params['batch_size'][0],
-                              shuffle=False)
     pt.mark('dataset')
+    test_bank = maybe_device_bank(params, test_set, device, logger)
+    test_loader = BatchLoader(test_set, params['batch_size'][0],
+                              shuffle=False,
+                              device_assemble=test_bank is not None)
+    pt.mark('bank')
     if params.get('start_from'):
         model.load_state_dict(load_reference_ckp(params['start_from']))
         logger.warning('use checkpoint: %s', params['start_from'])
     model = model.to(device).eval()
     pt.mark('init')
 
-    test_step = make_step(model, lg)
+    test_step = make_step(model, lg, _assembler(test_bank))
     pred_dict = _new_pred_dict(params)
     t0 = time.time()
-    host_batches, outs = [], []
-    for batch in test_loader:
-        host_batches.append(batch)
-        outs.append(test_step(to_device(batch, device)))
-    fetched = _fetch(outs)
+    host_batches, fetched = _eval_epoch(
+        test_step, test_loader, test_bank, device, timer=pt,
+        group=int(params.get('eval_scan_group', 8)), _graphed=_graphed)
     pt.mark('eval_loop')
-    losses = [float(f['loss']) for f in fetched]
-    mious = [float(f['miou']) for f in fetched]
+    losses = [float(x) for x in fetched['loss']]
+    mious = [float(x) for x in fetched['miou']]
     _log_eval_batches(logger, 'test', losses, mious,
                       params['batch_log_interval'],
                       (time.time() - t0) / max(len(host_batches), 1))
-    for batch, f in zip(host_batches, fetched):
-        _collect_predictions(pred_dict, batch, f['pred_time'], f['score'])
+    for i, batch in enumerate(host_batches):
+        _collect_predictions(pred_dict, batch, fetched['pred_time'][i],
+                             fetched['score'][i])
     submit = saver.save_submits(pred_dict, 0, 'test_data')
     # the reference's "elapsed time": eval loop + decode + collect +
     # submit write; not the model build, checkpoint load or scoring

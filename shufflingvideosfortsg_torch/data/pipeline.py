@@ -1,8 +1,6 @@
 """Input pipeline: fixed-shape NumPy batches.
 
-The port's own copy of ``shufflingvideosfortsg_tpu/data/pipeline.py``
-without the packed-feature (featpack) and device-bank branches, which
-arrive with the resident-bank slice; a featpack directory raises here.
+The port's own copy of ``shufflingvideosfortsg_tpu/data/pipeline.py``.
 It replaces the reference's torch DataLoader + collate stack
 (charades.py:20-50, charades_pair_aug.py:12-58):
 
@@ -11,6 +9,11 @@ It replaces the reference's torch DataLoader + collate stack
 - ``BatchLoader`` shuffles, assembles fixed-shape batches (the final partial
   batch is padded with wrap-around samples; ``n_valid`` marks the real
   count so eval drops padded rows), and optionally prefetches on a thread;
+- a feature path that is a FEATPAK1 pack (``data/featpack.py``) is read
+  with one parallel gather a batch (f16 packs ship as f16, widened on the
+  device), or, with ``device_assemble``, not at all: the batch carries
+  pack rows and token ids, and ``data/device_bank.py`` builds features,
+  embeddings and masks on the device;
 - host-side pseudo-video pair construction is the ``host_pair_aug=True``
   mode.
 
@@ -30,6 +33,7 @@ import numpy as np
 
 from .annotations import detect_split, load_sentence_samples
 from .augment import DataAugmentForTSG
+from .featpack import PackedFeatureSource, is_featpack_dir
 from .masks import sample_masks, sequence_mask
 from .samplers import (clip_framestamps, frame_to_second,
                        frame_to_second_114, lg_fixed_length, one_to_one,
@@ -85,18 +89,21 @@ class SentenceGroundingDataset:
                                 params['word_fts_path'])
         self.samples = load_sentence_samples(
             annotation_file, self.dataset_name, self.vocab, self.sent_len)
-        if os.path.isfile(os.path.join(feature_path, 'pack.bin')):
-            raise NotImplementedError(
-                f"{feature_path!r} is a featpack directory; packed features "
-                "and the resident device bank arrive with the port's "
-                "resident-bank slice. Use a directory of <vid>.npy files.")
-        if not os.path.exists(feature_path):
-            raise FileNotFoundError(
-                f"feature path does not exist: {feature_path!r}. The "
-                "I3D/C3D archives are external downloads (reference "
-                "README); for smoke runs generate synthetic features "
-                "with tools/make_synth_features.py.")
-        self.store = FeatureStore(feature_path)
+        # a packed feature blob (tools/featpack.py) is read with one
+        # parallel native gather a batch instead of a np.load a sample
+        self.pack: Optional[PackedFeatureSource] = None
+        self.store: Optional[FeatureStore] = None
+        if os.path.isdir(feature_path) and is_featpack_dir(feature_path):
+            self.pack = PackedFeatureSource(feature_path)
+        else:
+            if not os.path.exists(feature_path):
+                raise FileNotFoundError(
+                    f"feature path does not exist: {feature_path!r}. The "
+                    "I3D/C3D archives are external downloads (reference "
+                    "README); for smoke runs generate synthetic features "
+                    "with tools/make_synth_features.py, or a pack with "
+                    "tools/make_synth_pack.py.")
+            self.store = FeatureStore(feature_path)
 
         self._sampler_rng = np.random.RandomState(params.get('seed', 123))
         self.if_aug = bool(params.get('if_aug', False))
@@ -176,8 +183,17 @@ class SentenceGroundingDataset:
 
     def build_record(self, idx: int, host_pair_aug: bool = False) -> Dict[str, Any]:
         s = self.samples[idx]
-        feats, framestamps, nfeats = self._sample_features(
-            s.vid, s.timestamps, s.duration)
+        needs_host_feats = host_pair_aug or (self.is_train and self.if_aug) \
+            or self.pack is None
+        if self.pack is not None:
+            row = self.pack.vid_to_row[s.vid]
+            nfeats = int(self.pack.nfeats[row])
+            framestamps = clip_framestamps(s.timestamps, self.sample_len)
+            feats = self.pack.gather(np.asarray([row])) \
+                if needs_host_feats else None  # [1, T, D]
+        else:
+            feats, framestamps, nfeats = self._sample_features(
+                s.vid, s.timestamps, s.duration)
         framestamps = list(framestamps)
 
         if self.is_train and self.if_aug and not host_pair_aug:
@@ -199,8 +215,11 @@ class SentenceGroundingDataset:
             'temporal_labels': tl,
             'fore_masks': fm,
             'back_masks': bm,
-            'video_feat': feats[0],
         }
+        if feats is not None:
+            rec['video_feat'] = feats[0]
+        else:
+            rec['pack_row'] = np.int64(self.pack.vid_to_row[s.vid])
         if host_pair_aug:
             aug_f, aug_n, aug_feats = self.data_aug.aug_data(
                 framestamps, nfeats, feats)
@@ -246,19 +265,27 @@ class BatchLoader:
     """Shuffling fixed-shape batcher with optional thread prefetch.
 
     The final partial batch is padded with wrap-around samples; ``n_valid``
-    gives the true count. Multi-host striping (the JAX package's
-    ``process_index``/``process_count``) arrives with the parallel slice.
+    gives the true count. With ``device_assemble`` (a packed source and no
+    host pair aug) a batch is index-only: the keys of
+    ``data/device_bank.ASSEMBLED_KEYS`` are dropped, to be rebuilt on the
+    device by ``device_bank.assemble``. Multi-host striping (the JAX
+    package's ``process_index``/``process_count``) arrives with the
+    parallel slice.
     """
 
     def __init__(self, dataset: SentenceGroundingDataset, batch_size: int,
                  shuffle: bool, seed: int = 0, host_pair_aug: bool = False,
-                 prefetch: int = 2):
+                 prefetch: int = 2, device_assemble: bool = False):
+        if device_assemble and (dataset.pack is None or host_pair_aug):
+            raise ValueError('device_assemble needs a packed feature source '
+                             'and no host pair aug')
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.host_pair_aug = host_pair_aug
         self.prefetch = prefetch
+        self.device_assemble = device_assemble
         self.epoch = 0
 
     def __len__(self):
@@ -279,6 +306,22 @@ class BatchLoader:
         records = [self.dataset.build_record(int(i), self.host_pair_aug)
                    for i in chunk]
         batch = collate(records, n_valid)
+        if self.device_assemble and 'pack_row' in batch:
+            from .device_bank import ASSEMBLED_KEYS
+            for k in ASSEMBLED_KEYS:
+                batch.pop(k, None)
+            return batch
+        if 'pack_row' in batch:
+            # one parallel native gather for the whole video batch; f16
+            # packs ship as f16 (half the bytes, widened on the device)
+            # unless h2d_dtype asks for f32
+            pack = self.dataset.pack
+            rows = batch.pop('pack_row')
+            if pack.dtype == 'f16' and \
+                    self.dataset.params.get('h2d_dtype', 'raw') == 'raw':
+                batch['video_feat'] = pack.gather_raw(rows)
+            else:
+                batch['video_feat'] = pack.gather(rows)
         # [B, N] ids -> [B, N, 300] GloVe rows (pad id 0 = '.' embedding,
         # exactly like the reference's word_emb_init gather)
         batch['sent_feat'] = self.dataset.vocab.embeddings[batch['token_ids']]

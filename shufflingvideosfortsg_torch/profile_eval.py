@@ -1,21 +1,36 @@
 """Where one GMD evaluation batch spends its time on the card.
 
     python -m shufflingvideosfortsg_torch.profile_eval [--batch 32] [--iters 20]
+    python -m shufflingvideosfortsg_torch.profile_eval --banked [--group 8]
 
 Builds GMD at the width of ``cfgs/charades_cd_i3d.yml`` from seeded random
 weights and times the evaluation step (``eval_forward`` plus the span
 decode) on one seeded batch: milliseconds per batch from CUDA events, then
 one ``torch.profiler`` window that sums device time by kernel and gives the
-device's busy share of the window. Needs a CUDA device; prints one JSON
-line last.
+device's busy share of the window.
+
+``--banked`` writes a synthetic f16 pack of 1,024 videos (T=128, D=1024)
+with ``tools/make_synth_pack.py`` to a temporary directory, uploads it as
+a device bank (its upload seconds and bytes), and runs one evaluation
+epoch of ``--group`` x 8 index batches of ``--batch`` three ways: eager,
+batch by batch with the assembly on the device; and the graphed epoch of
+``cli._banked_eval_epoch`` at G=1 and at G=``--group``. For each: wall ms
+and device-busy ms per batch, sentences/s, and the device's busy share of
+an epoch under ``torch.profiler``.
+
+Needs a CUDA device; prints one JSON line last.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
+import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -23,8 +38,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .config import load_config
+from .data import device_bank
+from .data.featpack import PackedFeatureSource
 from .models.build import build_model
-from .train.steps import make_gmd_test_step
+from .train.steps import make_gmd_test_step, to_device
 
 
 def _batch(params, B: int, device, seed: int = 0):
@@ -77,10 +94,102 @@ def print_kernels(kernels, n: int, busy_ms: float, top: int = 15) -> None:
               f'{100 * us / 1e3 / busy_ms:5.1f}%  {name[:100]}')
 
 
+BANK_VIDEOS = 1024  # the --banked pack: 256 MiB of f16 at T=128, D=1024
+BANK_TICKS = 8  # ticks of --group batches in the --banked epoch
+
+
+def write_pack(root: str, V: int, T: int, D: int) -> str:
+    """A FEATPAK1 pack of V videos v0.. of random f16 features (zero past
+    each video's clip count), written under root by running
+    ``tools/make_synth_pack.py``; returns its directory."""
+    vids = os.path.join(root, 'videos.json')
+    with open(vids, 'w') as f:
+        json.dump({f'v{i}': {} for i in range(V)}, f)
+    out = os.path.join(root, 'pack')
+    tool = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'tools', 'make_synth_pack.py')
+    subprocess.run([sys.executable, tool, '--annotations', vids, '--out', out,
+                    '--t', str(T), '--d', str(D), '--dtype', 'f16'],
+                   check=True, capture_output=True, timeout=900)
+    return out
+
+
+def index_batches(params, V: int, B: int, n: int, seed: int = 0):
+    """n index-only host batches of B sentences over a bank of V videos."""
+    rng = np.random.RandomState(seed)
+    T, N = params['video_len'], params['sent_len']
+    out = []
+    for _ in range(n):
+        s = np.sort(rng.randint(0, T, (B, 2)), axis=1)
+        out.append({
+            'pack_row': rng.randint(0, V, B).astype(np.int64),
+            'token_ids': rng.randint(0, 400, (B, N)).astype(np.int64),
+            'sent_len': rng.randint(3, N, B).astype(np.int64),
+            'framestps': s.astype(np.int32),
+            'nfeats': rng.randint(16, T, B).astype(np.int32),
+            'timestps': s.astype(np.float32),
+            'duration': np.full(B, 30.0, np.float32)})
+    return out
+
+
+def banked(model, params, args, dev) -> dict:
+    """The --banked measurement; returns its JSON fields."""
+    from .cli import _banked_eval_epoch
+    T, D = params['video_len'], params['video_feature_dim']
+    with tempfile.TemporaryDirectory(prefix='svtsg_profile_') as root:
+        pack = PackedFeatureSource(write_pack(root, BANK_VIDEOS, T, D))
+        vocab = types.SimpleNamespace(embeddings=np.random.RandomState(1)
+                                      .uniform(-1, 1, (400, 300))
+                                      .astype(np.float32))
+        t0 = time.perf_counter()
+        bank = device_bank.DeviceFeatureBank(pack, vocab, dev)
+        upload_s = time.perf_counter() - t0
+        pack.close()
+    print(f'bank: {BANK_VIDEOS} videos, {bank.nbytes} bytes resident, '
+          f'uploaded in {upload_s:.3f} s')
+    step = make_gmd_test_step(model, assembler=bank.assemble)
+    batches = index_batches(params, BANK_VIDEOS, args.batch,
+                            args.group * BANK_TICKS)
+
+    def eager():
+        return [step(bank.attach(to_device(b, dev, device_bank.INDEX_KEYS)))
+                for b in batches]
+
+    modes = {'eager': eager}
+    for g in sorted({1, args.group}):
+        modes[f'graphed_g{g}'] = (
+            lambda g=g: _banked_eval_epoch(step, batches, bank, dev,
+                                           group=g))
+    n, out = len(batches), {}
+    for name, fn in modes.items():
+        fn()  # builds, plans, captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / (args.iters * n)
+        kernels, win_ms, busy_ms = profile_window(fn, 1)
+        out[name] = {'wall_ms_per_batch': wall,
+                     'sentences_per_s': args.batch / wall * 1e3,
+                     'device_ms_per_batch': busy_ms / n,
+                     'busy_share': busy_ms / win_ms,
+                     'kernels_seen': len(kernels)}
+        print(f'{name}: {wall:.4f} ms a batch of {args.batch} wall '
+              f'({args.batch / wall * 1e3:.1f} sentences/s), device busy '
+              f'{busy_ms / n:.4f} ms a batch, {100 * busy_ms / win_ms:.1f}% '
+              f'of a profiled epoch of {n} batches ({win_ms:.3f} ms)')
+        print_kernels(kernels, n, busy_ms, top=6)
+    return {'bank_bytes': bank.nbytes, 'upload_s': upload_s,
+            'batches': n, 'group': args.group, 'modes': out}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--batch', type=int, default=32)
     ap.add_argument('--iters', type=int, default=20)
+    ap.add_argument('--banked', action='store_true')
+    ap.add_argument('--group', type=int, default=8)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_eval needs a CUDA device')
@@ -91,6 +200,12 @@ def main() -> None:
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = build_model(params, 'gmd', device=dev).eval()
+    if args.banked:
+        smi = card_line()
+        print(f'card: {smi}')
+        fields = banked(model, params, args, dev)
+        print(json.dumps({'card': smi, 'batch': args.batch, **fields}))
+        return
     step = make_gmd_test_step(model)
     batch = _batch(params, args.batch, dev)
 

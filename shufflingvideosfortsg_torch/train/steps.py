@@ -3,9 +3,15 @@ eval steps.
 
 Counterpart of ``shufflingvideosfortsg_tpu/train/steps.py``:
 ``make_gmd_train_step`` (``:118-224``), ``make_gmd_valid_step``
-(``:227-269``), ``make_gmd_test_step`` (``:301-351``, the ungrouped,
-top-1 form), ``make_baseline_train_step`` (``:358-393``) and
-``make_baseline_eval_step`` (``:396-437``, top-1). The train loss is the reference's (grounding/
+(``:227-269``), ``make_gmd_test_step`` (``:301-351``, top-1),
+``make_baseline_train_step`` (``:358-393``) and
+``make_baseline_eval_step`` (``:396-437``, top-1). Each takes an
+``assembler`` (``data/device_bank.assemble``) that turns an attached
+index-only batch into the model batch on the device. The test and eval
+steps carry ``step.grouped``: G loader batches ``[G, B, ...]`` as one
+``[G*B]`` model pass, with each batch's loss and mIoU the mean over its
+own B rows (``_flatten_group``/``_regroup``, JAX ``:277-298``). The train
+loss is the reference's (grounding/
 train.py:140-165): grounding NLL + m1 * (intra-video BCE on raw and pseudo)
 + m2 * (inter-video span KL) + disc * (order-discrimination CE), plus
 ``loss_pseudo_ground_lambda`` * the grounding NLL of the pseudo stream
@@ -24,6 +30,7 @@ from typing import Any, Callable, Dict, Sequence
 import numpy as np
 import torch
 
+from ..data.device_bank import BANK_KEYS
 from ..ops.augment_device import gt_translate_batch
 from ..ops.losses import (bce_loss, masked_softmax, matching_kl_divergence,
                           span_ground_loss, span_ground_nll,
@@ -45,18 +52,53 @@ Batch = Dict[str, torch.Tensor]
 
 def to_device(batch: Dict[str, Any], device: torch.device,
               keys: Sequence[str] = STEP_KEYS) -> Batch:
-    return {k: torch.from_numpy(np.asarray(batch[k])).to(device)
-            for k in keys}
+    """``keys`` of a host batch as tensors on ``device``; f16 features (a
+    raw f16 pack's gather) cross as f16 and widen to f32 there."""
+    out = {}
+    for k in keys:
+        t = torch.from_numpy(np.asarray(batch[k])).to(device)
+        out[k] = t.float() if t.dtype == torch.float16 else t
+    return out
 
 
-def _stats(start_prob, end_prob, batch: Batch, lg_frame2sec: bool):
-    """(pred_time [B, 2] f32, score [B], mean IoU) of the decoded spans."""
+def _identity(batch: Batch) -> Batch:
+    return batch
+
+
+def _decode(start_prob, end_prob, batch: Batch, lg_frame2sec: bool):
+    """(pred_time [B, 2] f32, score [B], IoU [B]) of the decoded spans."""
     pred, score = span_decode(start_prob, end_prob)
     pred_f = pred.float()
     if lg_frame2sec:
         pred_f = pred_f / batch['nfeats'][:, None].float() \
             * batch['duration'][:, None].float()
-    return pred_f, score, iou_per_sample(pred_f, batch['timestps']).mean()
+    return pred_f, score, iou_per_sample(pred_f, batch['timestps'])
+
+
+def _stats(start_prob, end_prob, batch: Batch, lg_frame2sec: bool):
+    """(pred_time [B, 2] f32, score [B], mean IoU) of the decoded spans."""
+    pred_f, score, iou = _decode(start_prob, end_prob, batch, lg_frame2sec)
+    return pred_f, score, iou.mean()
+
+
+def _flatten_group(gbatch: Batch):
+    """[G, B, ...] batch -> ([G*B, ...] batch, G, B); the bank's resident
+    tensors pass through."""
+    G, B = gbatch['nfeats'].shape[:2]
+    flat = {k: v if k in BANK_KEYS else v.reshape((G * B,) + v.shape[2:])
+            for k, v in gbatch.items()}
+    return flat, G, B
+
+
+def _regroup(per_sample: Batch, G: int, B: int) -> Batch:
+    """Per-sample [G*B, ...] outputs -> each loader batch's loss and mIoU
+    (the means over its B rows, as the ungrouped step gives them) and
+    [G, B, ...] outputs."""
+    res = {'loss': per_sample.pop('nll').reshape(G, B).mean(1),
+           'miou': per_sample.pop('iou').reshape(G, B).mean(1)}
+    for k, v in per_sample.items():
+        res[k] = v.reshape((G, B) + v.shape[1:])
+    return res
 
 
 def _device_pseudo(batch: Batch, generator: torch.Generator) -> Batch:
@@ -101,7 +143,7 @@ def _refuse_grad_accum(params: Dict[str, Any]) -> None:
 
 
 def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
-                        lg_frame2sec: bool = False
+                        lg_frame2sec: bool = False, assembler=None
                         ) -> Callable[[Batch, torch.Generator], Batch]:
     """Returns step(batch, generator) -> metrics: one optimizer update of
     ``state`` from one batch of raw videos (and, without
@@ -114,6 +156,7 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
     md = float(params['loss_disc_lambda'])
     mpg = float(params.get('loss_pseudo_ground_lambda', 0) or 0)
     on_device_aug = bool(params.get('on_device_aug', True))
+    assemble = assembler or _identity
     _refuse_grad_accum(params)
 
     def loss_fn(batch: Batch, pseudo: Batch, generator):
@@ -136,6 +179,7 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
 
     def train_step(batch: Batch, generator: torch.Generator) -> Batch:
         model.train()
+        batch = assemble(batch)
         if on_device_aug:
             pseudo = _device_pseudo(batch, generator)
         else:
@@ -155,17 +199,19 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
 
 
 def make_gmd_valid_step(model, params: Dict[str, Any],
-                        lg_frame2sec: bool = False
+                        lg_frame2sec: bool = False, assembler=None
                         ) -> Callable[[Batch, torch.Generator], Batch]:
     """The reference's valid(): the pair forward without dropout on device-
     made pseudo videos, the losses less the discriminator term, and the
     decoded spans for the submit file (train.py:209-318)."""
     m1 = float(params['loss_m1_lambda'])
     m2 = float(params['loss_m2_lambda'])
+    assemble = assembler or _identity
 
     @torch.no_grad()
     def valid_step(batch: Batch, generator: torch.Generator) -> Batch:
         model.eval()
+        batch = assemble(batch)
         pseudo = _device_pseudo(batch, generator)
         out = _pair_forward(model, batch, pseudo, None)
         loss_g, loss_intra, loss_inter = _match_losses(out, batch, pseudo,
@@ -179,37 +225,52 @@ def make_gmd_valid_step(model, params: Dict[str, Any],
     return valid_step
 
 
-def make_gmd_test_step(model, lg_frame2sec: bool = False
+def make_gmd_test_step(model, lg_frame2sec: bool = False, assembler=None
                        ) -> Callable[[Batch], Batch]:
     """Returns step(batch) -> {loss, miou, pred_time [B, 2], score [B]} on
     the batch's device, from the model in eval mode (no dropout, whatever
     mode a train step left it in). loss and miou average over all B rows,
-    padded wrap-around rows included, as the JAX step does."""
+    padded wrap-around rows included, as the JAX step does.
+    ``step.grouped(gbatch)`` takes [G, B, ...] batches in one [G*B] pass
+    and returns loss and miou [G] and the outputs [G, B, ...]. Neither
+    synchronises with the host, so a CUDA graph can capture them."""
+    assemble = assembler or _identity
 
     @torch.no_grad()
-    def test_step(batch: Batch) -> Batch:
+    def per_sample(batch: Batch) -> Batch:
         model.eval()
+        batch = assemble(batch)
         out = model.eval_forward(batch['video_feat'], batch['sent_feat'],
                                  batch['video_mask'], batch['sent_mask'])
         nll = span_ground_nll(out['start_prob'], out['end_prob'],
                               batch['framestps'])
-        pred_f, score, miou = _stats(out['start_prob'], out['end_prob'],
+        pred_f, score, iou = _decode(out['start_prob'], out['end_prob'],
                                      batch, lg_frame2sec)
-        return {'loss': nll.mean(), 'miou': miou, 'pred_time': pred_f,
-                'score': score}
+        return {'nll': nll, 'iou': iou, 'pred_time': pred_f, 'score': score}
 
+    def test_step(batch: Batch) -> Batch:
+        out = per_sample(batch)
+        return {'loss': out.pop('nll').mean(), 'miou': out.pop('iou').mean(),
+                **out}
+
+    def grouped(gbatch: Batch) -> Batch:
+        flat, G, B = _flatten_group(gbatch)
+        return _regroup(per_sample(flat), G, B)
+
+    test_step.grouped = grouped
     return test_step
 
 
 def make_baseline_train_step(model, state: TrainState,
                              params: Dict[str, Any],
-                             lg_frame2sec: bool = False
+                             lg_frame2sec: bool = False, assembler=None
                              ) -> Callable[[Batch, torch.Generator], Batch]:
     """Returns step(batch, generator) -> {loss, miou}: one optimizer update
     of ``state`` on the grounding NLL of one batch, with dropout masks from
     the generator. ``step.loss_fn(batch, generator) -> (loss, aux)`` is the
     loss alone."""
     _refuse_grad_accum(params)
+    assemble = assembler or _identity
 
     def loss_fn(batch: Batch, generator):
         out = model(batch['video_feat'], batch['sent_feat'],
@@ -222,6 +283,7 @@ def make_baseline_train_step(model, state: TrainState,
 
     def train_step(batch: Batch, generator: torch.Generator) -> Batch:
         model.train()
+        batch = assemble(batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = loss_fn(batch, generator)
         loss.backward()
@@ -235,10 +297,12 @@ def make_baseline_train_step(model, state: TrainState,
 
 
 def make_baseline_eval_step(model, lg_frame2sec: bool = False,
-                            topk: int = 1) -> Callable[[Batch], Batch]:
+                            assembler=None, topk: int = 1
+                            ) -> Callable[[Batch], Batch]:
     """The baseline's valid and test step: ``make_gmd_test_step``'s
-    {loss, miou, pred_time, score} on the model's ``eval_forward`` in eval
-    mode, which for the baseline is its forward without dropout."""
+    {loss, miou, pred_time, score} and ``grouped`` pass on the model's
+    ``eval_forward`` in eval mode, which for the baseline is its forward
+    without dropout."""
     if topk > 1:
         raise NotImplementedError('eval_topk > 1 is not ported yet')
-    return make_gmd_test_step(model, lg_frame2sec)
+    return make_gmd_test_step(model, lg_frame2sec, assembler)

@@ -37,6 +37,7 @@ from shufflingvideosfortsg_torch.train.steps import (
     STEP_KEYS, make_baseline_eval_step, make_baseline_train_step)
 from shufflingvideosfortsg_torch.utils.interop import (load_reference_ckp,
                                                        state_dict_from_jax)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = 1e-5  # f32
 SCORE_TOL = 1e-5  # f32 span scores

@@ -15,6 +15,7 @@ from shufflingvideosfortsg_tpu import cli as jax_cli
 from shufflingvideosfortsg_tpu.models import build_model as jax_build_model
 from shufflingvideosfortsg_tpu.utils.torch_interop import save_reference_ckp
 from shufflingvideosfortsg_torch import cli as port_cli
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SCORE_TOL = 1e-5  # f32 span scores
 TINY = ['--video_feature_dim', '32', '--video_len', '24', '--sent_len', '8',

@@ -16,6 +16,7 @@ from shufflingvideosfortsg_torch.models.build import build_model
 from shufflingvideosfortsg_torch.models.gmd import GMD
 from shufflingvideosfortsg_torch.utils.interop import (load_reference_ckp,
                                                        state_dict_from_jax)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = 1e-5  # f32
 W, HS, D, HV, MLP, MPRED = 20, 8, 12, 16, 8, 24

@@ -20,6 +20,7 @@ from shufflingvideosfortsg_torch.ops.lstm_scan import (lstm_recurrence,
                                                        lstm_recurrence_plain)
 from shufflingvideosfortsg_torch.ops.scdm_fused import (scdm_attention_fused,
                                                         scdm_attention_plain)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = 1e-5  # f32, sums in another order than XLA's
 

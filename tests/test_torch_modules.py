@@ -20,6 +20,7 @@ from shufflingvideosfortsg_torch.ops.rnn import BiLSTM
 from shufflingvideosfortsg_torch.utils.interop import (bilstm_to_torch,
                                                        layernorm_to_torch,
                                                        linear_to_torch)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

@@ -19,10 +19,14 @@ from shufflingvideosfortsg_torch.ops.lstm_scan import (lstm_recurrence,
                                                        lstm_recurrence_plain)
 from shufflingvideosfortsg_torch.ops.scdm_fused import (scdm_attention_fused,
                                                         scdm_attention_plain)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(shufflingvideosfortsg_torch.__file__)
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'shufflingvideosfortsg_tpu')
+# nor the repo's tools/ (chip_smoke.py runs tools/make_synth_pack.py as a
+# program, which is no import)
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'shufflingvideosfortsg_tpu',
+             'tools')
 
 
 @pytest.fixture(autouse=True)
@@ -161,3 +165,19 @@ def test_requires_cuda_marker_is_registered(request):
 def test_requires_cuda_tests_run_only_with_a_card():
     """Skips here through the autouse fixture; on a card it runs."""
     assert torch.cuda.is_available()
+
+
+def test_port_tests_run_torch_on_one_thread():
+    """F3 (ROADMAP.md §3): under the Tier-1 run's six workers a torch pool
+    of a thread a core made the port's tests 2.1 times slower in all, so
+    every port test module runs on one thread (``tests/torch_one_thread``),
+    and restores the count after it."""
+    assert torch.get_num_threads() == 1
+    tests = os.path.join(REPO, 'tests')
+    modules = [n for n in os.listdir(tests)
+               if n.startswith('test_torch_') and n.endswith('.py')]
+    assert len(modules) >= 15
+    for name in modules:
+        with open(os.path.join(tests, name)) as f:
+            assert 'from torch_one_thread import one_torch_thread' in \
+                f.read(), name

@@ -20,6 +20,7 @@ from shufflingvideosfortsg_torch.ops.scdm_fused import (
     scdm_attention_bwd_core, scdm_attention_bwd_core_plain,
     scdm_attention_bwd_plain, scdm_attention_fused,
     scdm_attention_fused_trainable, scdm_attention_plain)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = 1e-5  # f32, sums in another order than XLA's
 NAMES = ('video_proj', 'sent_proj', 'w', 'sent_feat')

@@ -20,6 +20,7 @@ import torch
 
 from shufflingvideosfortsg_torch import measure_gates_bf16
 from shufflingvideosfortsg_torch.ops import lstm_scan as L
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 F32_TOL = 1e-6  # f32, sums over H in another order than XLA's
 GRAD_ATOL, GRAD_RTOL = 5e-6, 1e-4  # tests/test_pallas_lstm.py's VJP test

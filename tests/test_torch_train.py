@@ -31,6 +31,7 @@ from shufflingvideosfortsg_torch.train.steps import (HOST_PAIR_KEYS,
                                                      make_gmd_train_step,
                                                      make_gmd_valid_step)
 from shufflingvideosfortsg_torch.utils.interop import state_dict_from_jax
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = 1e-5  # f32
 B, T, N, D = 4, 20, 7, 10

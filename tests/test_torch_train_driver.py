@@ -17,6 +17,7 @@ from shufflingvideosfortsg_tpu.utils.saver import \
     load_checkpoint as jax_load_checkpoint
 from shufflingvideosfortsg_torch import cli
 from shufflingvideosfortsg_torch.utils.interop import state_dict_from_jax
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TINY = ['--video_feature_dim', '32', '--video_len', '24', '--sent_len', '8',
         '--sent_rnn_hiddendim', '8', '--video_rnn_hiddendim', '8',

@@ -20,6 +20,7 @@ from shufflingvideosfortsg_torch.ops.lstm_scan import (
 from shufflingvideosfortsg_torch.ops.scdm_fused import (
     scdm_attention_fused, scdm_attention_fused_trainable,
     scdm_attention_plain)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = 1e-5        # f32, sums in another order than XLA's
 GRAD_ATOL, GRAD_RTOL = 5e-6, 1e-4  # tests/test_pallas_lstm.py's VJP test

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from shufflingvideosfortsg_torch.ops import lstm_scan as L
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 F32_ATOL = 1e-5   # f32 sums over the T*B pairs in another order
 BF16_TOL = 2e-2   # a few bf16 ulps of the rounded operands, summed in f32
