@@ -3,7 +3,7 @@
 Counterpart of ``shufflingvideosfortsg_tpu/cli.py``: ``build_argparser``
 and ``parse_params`` (``:50-105``, the same flags and merge rules, plus
 ``--device``), ``main_train`` with ``run_valid`` and ``_print_statistics``
-(``:756-1036``, the per-batch loop), ``main_test`` (``:1041-1113``),
+(``:756-1036``), ``main_test`` (``:1041-1113``),
 ``main_train_baseline`` with ``run_eval_collect`` (``:1120-1273``) and
 ``main_test_baseline`` (``:1276-1322``).
 
@@ -16,11 +16,17 @@ the pack is over ``device_bank_max_gb`` or a train set has ``if_aug``):
 batches then carry indices and are assembled on the device. An evaluation
 with such a bank (``_banked_eval_epoch``, JAX ``cli.py:390``) uploads the
 index arrays of the whole split once and runs ``eval_scan_group`` loader
-batches a tick as one ``[G*B]`` pass; on a card each tick is one replay
-of a CUDA graph, the port's counterpart of JAX's ``lax.scan`` over the
-epoch. GMD's valid pass (its pseudo videos come from a
-``torch.Generator``) and training run one batch at a time with the
-assembly on the device, whatever ``train_scan_chunk`` says.
+batches a tick as one ``[G*B]`` pass, GMD's valid pass too (its pseudo
+videos drawn from its ``torch.Generator`` batch after batch); GMD
+training on a bank with ``train_scan_chunk`` > 1
+(``_banked_train_chunks_factory``, JAX ``cli.py:575``) uploads a chunk's
+index arrays once and runs its steps one after another, logging and
+checking the loss at chunk boundaries. On a card a tick and a train step
+are each one replay of a CUDA graph (``_GraphedTick``, its first calls
+eager), the port's counterpart of JAX's ``lax.scan``; the generator is
+registered with the graph, so a graphed run draws and computes what the
+eager one does, bit for bit. The QAVE baseline trains batch by batch, as
+JAX's ``main_train_baseline`` does.
 
 Not ported yet, and refused: ``eval_topk > 1``,
 ``precision: bf16``, and in training ``multi_seed``, ``pipeline_stages``,
@@ -220,8 +226,9 @@ def _refuse_unported_training(params: Dict[str, Any]) -> None:
                                   'PyTorch trainer yet')
 
 
-def _avg(fetched: Dict[str, np.ndarray], key) -> float:
-    return float(np.mean([float(m) for m in fetched[key]]))
+def _avg(fetched: Dict[str, np.ndarray], key, weights=None) -> float:
+    return float(np.average([float(m) for m in fetched[key]],
+                            weights=weights))
 
 
 def _fetch(outs: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
@@ -239,97 +246,156 @@ def _device_batch(batch, device: torch.device, keys, bank):
 
 
 class _GraphedTick:
-    """One CUDA graph of ``fn`` (a dict of tensors -> a dict of tensors)
-    over static input buffers shaped like ``example``. The warm-up runs on
-    a side stream first: it builds the kernels, fills the launch plans'
-    caches and creates the cuBLAS handles, none of which a capture may do.
-    A call copies its inputs into the buffers on the device and replays;
-    the outputs are the graph's static tensors, overwritten by the next
-    replay."""
+    """A CUDA graph of ``fn`` (a dict of tensors -> a dict of tensors)
+    built from real calls. The first ``WARMUP`` calls run ``fn`` eagerly
+    on a side stream: they build the kernels, fill the launch plans'
+    caches and create the cuBLAS handles and workspaces (the autograd
+    thread's too) and an optimizer's state, none of which a capture may
+    do. The next call captures ``fn`` on the side stream over static
+    buffers shaped like its inputs, with ``generator`` (if any) registered
+    so each replay draws what an eager call would, and replays it; every
+    later call copies its inputs into the buffers on the device and
+    replays. Each run is a real call, so ``fn`` may change state (a train
+    step, a step that draws from ``generator``): nothing is run on
+    throwaway inputs. The outputs of a replay are the graph's static
+    tensors, overwritten by the next one. A failed capture raises."""
 
-    WARMUP = 2  # runs before the capture
+    WARMUP = 2  # eager calls before the capture
 
-    def __init__(self, fn, example: Dict[str, torch.Tensor]):
-        self.static_in = {k: v.clone() for k, v in example.items()}
-        side = torch.cuda.Stream(device=next(iter(example.values())).device)
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(self.WARMUP):
-                fn(self.static_in)
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=side):
-            self.static_out = fn(self.static_in)
+    def __init__(self, fn, generator: Optional[torch.Generator] = None):
+        self.fn = fn
+        self.generator = generator
+        self.calls = 0
+        self.graph = None
 
     def __call__(self, inputs: Dict[str, torch.Tensor]):
-        for k, v in inputs.items():
-            self.static_in[k].copy_(v)
+        self.calls += 1
+        if self.graph is None:
+            device = next(iter(inputs.values())).device
+            current = torch.cuda.current_stream(device)
+            if self.calls == 1:
+                self.side = torch.cuda.Stream(device=device)
+            self.side.wait_stream(current)
+            if self.calls <= self.WARMUP:
+                with torch.cuda.stream(self.side):
+                    out = self.fn(inputs)
+                current.wait_stream(self.side)
+                return out
+            self.static_in = {k: v.clone() for k, v in inputs.items()}
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            with torch.cuda.graph(graph, stream=self.side):
+                self.static_out = self.fn(self.static_in)
+            self.graph = graph
+        else:
+            for k, v in inputs.items():
+                self.static_in[k].copy_(v)
         self.graph.replay()
         return self.static_out
 
 
+def _tick_runner(step, fn, shapes, bank, device: torch.device,
+                 graphed: bool, generator=None):
+    """``fn`` itself, or on a card with ``graphed`` its :class:`_GraphedTick`,
+    kept on ``step`` by (input shapes, bank, generator): captured once per
+    step and key, its memory pool kept with it."""
+    if not (graphed and device.type == 'cuda'):
+        return fn
+    cache = step.__dict__.setdefault('graphs', {})
+    key = (shapes, bank.key(), bank.feats.data_ptr(), generator)
+    if key not in cache:
+        cache[key] = _GraphedTick(fn, generator)
+    return cache[key]
+
+
+def _stack_indices(host_batches, group: Optional[int] = None
+                   ) -> Dict[str, np.ndarray]:
+    """The index arrays of ``host_batches`` as [n, B, ...], or with a
+    ``group`` G as [n_ticks, G, B, ...] with the last tick padded by
+    repeating the last batch."""
+    arrays = {k: np.stack([np.asarray(b[k]) for b in host_batches])
+              for k in INDEX_KEYS}
+    if group is not None:
+        pad = -len(host_batches) % group
+        if pad:
+            arrays = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
+                      for k, v in arrays.items()}
+        arrays = {k: v.reshape((-1, group) + v.shape[1:])
+                  for k, v in arrays.items()}
+    return arrays
+
+
+def _upload(arrays: Dict[str, np.ndarray], device: torch.device):
+    """``arrays`` on the device, and their shapes past the first axis (a
+    graph's key)."""
+    dev = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    shapes = tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in dev.items())
+    return dev, shapes
+
+
 def _banked_eval_epoch(step, host_batches, bank, device: torch.device,
                        timer: Optional['_PhaseTimer'] = None,
-                       group: int = 1, graphed: bool = True
+                       group: int = 1, graphed: bool = True,
+                       generator: Optional[torch.Generator] = None
                        ) -> Dict[str, np.ndarray]:
     """A whole eval epoch on a device bank (JAX ``cli.py:390``): the index
     arrays of every batch go up once as [n_ticks, G, B, ...] (the last
     tick padded by repeating the last batch), each tick runs
     ``step.grouped`` on G batches (the bank's assembly, the [G*B] pass,
-    the per-batch means) and its outputs are copied on the device into
-    [n_ticks, ...] results, fetched once at the end and cut back to the
-    real batches.
+    the per-batch means) and its outputs are copied on the device, fetched
+    once at the end and cut back to the real batches. With ``generator``
+    (a valid step's pseudo draws, batch after batch) a tick draws for
+    each of its batches, so the last tick is not padded: its batches run
+    as one shorter tick of their own, eagerly, and the epoch draws what
+    the step batch by batch does.
 
-    On a card with ``graphed`` the tick is a CUDA graph
-    (:class:`_GraphedTick`), captured once per (tick shapes, bank) and
-    kept on the step with its memory pool; a failed capture raises.
-    Otherwise (the CPU, or ``graphed=False``) the same tick runs
-    eagerly."""
+    On a card with ``graphed`` the full ticks run through a
+    :class:`_GraphedTick` kept on the step (:func:`_tick_runner`).
+    Otherwise (the CPU, or ``graphed=False``) every tick runs eagerly.
+
+    Phase marks, as JAX's: ``eval_stack``, ``eval_upload``,
+    ``eval_build`` (in the epoch that builds the graph: its eager warm-up
+    ticks, the capture and the first replay, waited for on the card) and
+    ``eval_exec`` (every other tick and the fetch)."""
 
     def mark(name):
         if timer is not None:
             timer.mark(name)
 
-    arrays = {k: np.stack([np.asarray(b[k]) for b in host_batches])
-              for k in INDEX_KEYS}
     n_real = len(host_batches)
     group = max(1, min(int(group), n_real))
-    pad = -n_real % group
-    if pad:
-        arrays = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
-                  for k, v in arrays.items()}
-    arrays = {k: v.reshape((-1, group) + v.shape[1:])
-              for k, v in arrays.items()}
+    n_full = n_real - n_real % group if generator is not None else n_real
+    arrays = _stack_indices(host_batches[:n_full], group)
+    tail = host_batches[n_full:]
+    if tail:
+        tail = _stack_indices(tail, len(tail))
     mark('eval_stack')
-    dev = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    dev, shapes = _upload(arrays, device)
+    if tail:
+        tail, _ = _upload(tail, device)
     mark('eval_upload')
-    n_ticks = next(iter(dev.values())).shape[0]
 
     def tick_fn(tick):
-        return step.grouped(bank.attach(tick))
+        tick = bank.attach(tick)
+        if generator is None:
+            return step.grouped(tick)
+        return step.grouped(tick, generator)
 
-    run = tick_fn
-    if graphed and device.type == 'cuda':
-        cache = step.__dict__.setdefault('graphs', {})
-        key = (tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in dev.items()),
-               bank.key(), bank.feats.data_ptr())
-        if key not in cache:
-            cache[key] = _GraphedTick(tick_fn, {k: v[0] for k, v in
-                                                dev.items()})
-        run = cache[key]
-    mark('eval_build')
-    results = None
-    for i in range(n_ticks):
+    run = _tick_runner(step, tick_fn, shapes, bank, device, graphed,
+                       generator)
+    outs = []
+    for i in range(next(iter(dev.values())).shape[0]):
+        building = getattr(run, 'graph', False) is None
         out = run({k: v[i] for k, v in dev.items()})
-        if results is None:
-            results = {k: torch.empty((n_ticks,) + v.shape, dtype=v.dtype,
-                                      device=v.device)
-                       for k, v in out.items()}
-        for k, v in out.items():
-            results[k][i].copy_(v)
-    fetched = {k: v.cpu().numpy() for k, v in results.items()}
-    fetched = {k: v.reshape((-1,) + v.shape[2:])[:n_real]
-               for k, v in fetched.items()}
+        outs.append({k: v.clone() for k, v in out.items()})
+        if building and run.graph is not None:
+            torch.cuda.synchronize(device)
+            mark('eval_build')
+    if tail:
+        outs.append(tick_fn({k: v[0] for k, v in tail.items()}))
+    fetched = {k: torch.cat([o[k] for o in outs]).cpu().numpy()[:n_real]
+               for k in outs[0]}
     mark('eval_exec')
     return fetched
 
@@ -344,10 +410,11 @@ def _eval_epoch(step, loader, bank, device: torch.device,
     device where there is a bank), fetched once. ``generator`` feeds a
     valid step's pseudo-video draws. ``_graphed=False`` runs the banked
     epoch's ticks without a graph (for comparisons)."""
-    if bank is not None and generator is None and hasattr(step, 'grouped'):
+    if bank is not None and hasattr(step, 'grouped'):
         host_batches = list(loader)
         return host_batches, _banked_eval_epoch(
-            step, host_batches, bank, device, timer, group, _graphed)
+            step, host_batches, bank, device, timer, group, _graphed,
+            generator)
     host_batches, outs = [], []
     for batch in loader:
         host_batches.append(batch)
@@ -356,11 +423,58 @@ def _eval_epoch(step, loader, bank, device: torch.device,
     return host_batches, _fetch(outs)
 
 
-def main_train(params: Dict[str, Any]) -> Dict[str, Any]:
+def _banked_train_chunks_factory(train_step, bank, device: torch.device,
+                                 graphed: bool = True):
+    """Chunked training on a device bank (JAX ``cli.py:575``): returns
+    run(host_chunk, generator) -> {metric: chunk mean, a 0-d tensor on the
+    device}, which takes the K loader batches of ``host_chunk`` as K
+    updates of ``train_step.state``. The chunk's index arrays go up once as
+    [K, B, ...]; the rate is set once (a chunk never straddles an epoch,
+    and the schedule is epoch-granular); each update runs
+    ``train_step.inner`` on the bank and the generator, and counts itself;
+    its metrics are kept on the device, [K] of each. So a chunk
+    draws from the generator and updates the weights exactly as K calls of
+    the step would.
+
+    On a card with ``graphed`` and an optimizer that a graph captures
+    (``state.captures``), the updates run through a :class:`_GraphedTick`
+    kept on the step (:func:`_tick_runner`): the epoch's first updates
+    warm up eagerly, the next is captured, and every later one, the tail
+    chunk's too, is a replay of that graph. Otherwise every update runs
+    eagerly."""
+    state = train_step.state
+    graphed = graphed and state.captures
+
+    def run(host_chunk, generator: torch.Generator):
+        dev, shapes = _upload(_stack_indices(host_chunk), device)
+
+        def update(batch):
+            return train_step.inner(bank.attach(batch), generator)
+
+        step = _tick_runner(train_step, update, shapes, bank, device,
+                            graphed, generator)
+        state.set_lr()
+        outs = []
+        for i in range(len(host_chunk)):
+            out = step({k: v[i] for k, v in dev.items()})
+            state.step += 1
+            outs.append({k: v.clone() for k, v in out.items()})
+        return {k: torch.stack([o[k] for o in outs]).mean() for k in outs[0]}
+
+    return run
+
+
+def main_train(params: Dict[str, Any], _graphed: bool = True
+               ) -> Dict[str, Any]:
     """Train GMD for ``params['epoch']`` epochs: a valid pass every
     ``test_interval`` epochs (submit JSON under ``submits/``) and a
     reference ``.ckp`` every ``save_model_interval`` epochs and at the
-    end. Returns the loss/mIoU statistics it prints."""
+    end. Returns the loss/mIoU statistics it prints. With the train set
+    on a device bank and ``train_scan_chunk`` > 1 an epoch runs in chunks
+    (:func:`_banked_train_chunks_factory`), and a valid set on a bank in
+    grouped ticks; on a card both run as CUDA graphs, unless
+    ``_graphed=False`` (for comparisons). The train step carries the
+    run's generators, ``generator`` and ``valid_generator``."""
     host_pair = not params.get('on_device_aug', True)
 
     def steps(model, state, lg, device, train_bank, valid_bank):
@@ -372,14 +486,16 @@ def main_train(params: Dict[str, Any]) -> Dict[str, Any]:
 
         def validate(loader, logger, epoch, saver):
             return run_valid(valid_step, loader, params, logger, epoch, saver,
-                             device, valid_gen, valid_bank)
-        return make_gmd_train_step(model, state, params, lg,
-                                   _assembler(train_bank)), validate
+                             device, valid_gen, valid_bank, _graphed)
+        train_step = make_gmd_train_step(model, state, params, lg,
+                                         _assembler(train_bank))
+        train_step.valid_generator = valid_gen
+        return train_step, validate
 
     return _train(params, 'gmd', steps,
                   HOST_PAIR_KEYS if host_pair else TRAIN_KEYS,
                   ('miou', 'loss_g', 'loss_intra', 'loss_inter', 'loss_d'),
-                  host_pair)
+                  host_pair, graphed=_graphed)
 
 
 def main_train_baseline(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -400,14 +516,31 @@ def main_train_baseline(params: Dict[str, Any]) -> Dict[str, Any]:
     return _train(params, 'baseline', steps, STEP_KEYS, ('miou',))
 
 
+def _chunks(loader, size: int):
+    """The loader's batches in lists of ``size``, the last one shorter."""
+    pending = []
+    for batch in loader:
+        pending.append(batch)
+        if len(pending) == size:
+            yield pending
+            pending = []
+    if pending:
+        yield pending
+
+
 def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
-           host_pair: bool = False) -> Dict[str, Any]:
+           host_pair: bool = False, graphed: bool = True) -> Dict[str, Any]:
     """The training loop shared by the drivers. ``steps(model, state, lg,
     device, train_bank, valid_bank)`` returns (train_step, validate);
     ``keys`` are the batch keys a train step reads without a bank and
     ``terms`` the metrics it logs beside the loss; ``host_pair`` has the
     loader make the pseudo videos (and keeps the train set off the
-    bank)."""
+    bank). With a train step that has a chunked form (``step.inner``,
+    GMD's) and a train bank, ``train_scan_chunk`` steps run as one chunk
+    (``graphed`` on a card), logged and checked at chunk boundaries as
+    JAX's ``flush`` does (``cli.py:864-889``), the epoch's means weighted
+    by chunk size. The train generator goes on the step as
+    ``generator``."""
     device = resolve_device(params.get('device', 'cuda'))
     _refuse_unported_training(params)
     logger = setup_logger(params['alias'])
@@ -435,41 +568,71 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
     state = TrainState(model, params, steps_per_epoch=len(train_loader))
     train_step, validate = steps(model, state, lg, device, train_bank,
                                  valid_bank)
-    train_gen = torch.Generator(device).manual_seed(seed)
+    train_gen = train_step.generator = torch.Generator(device).manual_seed(
+        seed)
+    chunk = int(params.get('train_scan_chunk', 16))
+    run_chunk = None
+    if hasattr(train_step, 'inner') and train_bank is not None and chunk > 1:
+        run_chunk = _banked_train_chunks_factory(train_step, train_bank,
+                                                 device, graphed)
+        if graphed and device.type == 'cuda' and not state.captures:
+            logger.warning('optim %s: a CUDA graph cannot capture its '
+                           'update, so the chunks run their steps eagerly',
+                           params.get('optim'))
 
     statistics = {'loss': {}, 'mIoU': {}}
     log_iv = params['batch_log_interval']
     check_iv = params.get('nan_check_interval', 100)
-    for epoch in range(params['epoch']):
-        t0 = time.time()
-        outs = []
-        for idx, batch in enumerate(train_loader):
-            t_b = time.time()
-            metrics = train_step(
-                _device_batch(batch, device, keys, train_bank), train_gen)
-            outs.append(metrics)
-            do_log = log_iv != -1 and idx % log_iv == 0
-            if do_log or idx % check_iv == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                if do_log:
-                    logger.info(
-                        'train: epoch[%03d], batch[%04d/%04d], elapsed '
-                        'time=%0.2fs, %s', epoch, idx, len(train_loader),
+    n_batches = len(train_loader)
+
+    def check(metrics, epoch, idx, t_b, do_log):
+        m = {k: float(v) for k, v in metrics.items()}
+        if do_log:
+            logger.info('train: epoch[%03d], batch[%04d/%04d], elapsed '
+                        'time=%0.2fs, %s', epoch, idx, n_batches,
                         time.time() - t_b, ', '.join(
                             f'{k}: {m[k]:03.3f}' for k in ('loss',) + terms))
-                if not math.isfinite(m['loss']):
-                    raise FloatingPointError(
-                        f'non-finite loss {m["loss"]} at epoch {epoch} batch '
-                        f'{idx}')
+        if not math.isfinite(m['loss']):
+            raise FloatingPointError(f'non-finite loss {m["loss"]} at epoch '
+                                     f'{epoch} batch {idx}')
+
+    for epoch in range(params['epoch']):
+        t0 = time.time()
+        outs, weights = [], None
+        if run_chunk is None:
+            for idx, batch in enumerate(train_loader):
+                t_b = time.time()
+                metrics = train_step(
+                    _device_batch(batch, device, keys, train_bank), train_gen)
+                outs.append(metrics)
+                do_log = log_iv != -1 and idx % log_iv == 0
+                if do_log or idx % check_iv == 0:
+                    check(metrics, epoch, idx, t_b, do_log)
+        else:
+            weights, idx, t_b = [], 0, time.time()
+            for pending in _chunks(train_loader, chunk):
+                n = len(pending)
+                metrics = run_chunk(pending, train_gen)
+                outs.append(metrics)
+                weights.append(n)
+                iv = max(log_iv, 1)
+                do_log = log_iv != -1 and idx // iv != (idx + n) // iv
+                # idx == 0: a non-finite first step shows at the first
+                # chunk, as at the per-step path's first check
+                if do_log or idx == 0 or \
+                        idx // check_iv != (idx + n) // check_iv:
+                    check(metrics, epoch, idx, t_b, do_log)
+                idx += n
+                t_b = time.time()
         fetched = _fetch(outs)
-        avg_loss = _avg(fetched, 'loss')
+        avg_loss = _avg(fetched, 'loss', weights)
         epoch_secs = time.time() - t0
         logger.info('epoch [%03d]: elapsed time:%0.2fs, avg loss: %03.3f, '
                     'miou: %03.3f', epoch, epoch_secs, avg_loss,
-                    _avg(fetched, 'miou'))
+                    _avg(fetched, 'miou', weights))
         saver.log_metrics({'epoch': epoch, 'phase': 'train',
                            'seconds': epoch_secs, 'loss': avg_loss,
-                           **{k: _avg(fetched, k) for k in terms}})
+                           **{k: _avg(fetched, k, weights) for k in terms}})
         if (epoch + 1) % params['test_interval'] == 0 or epoch == 0:
             statistics['loss'][epoch] = round(avg_loss, 3)
         if (epoch + 1) % params['test_interval'] == 0:
@@ -487,14 +650,17 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
 
 def run_valid(valid_step, loader, params, logger, epoch: int,
               saver: Optional[RunManager], device: torch.device,
-              generator: torch.Generator, bank=None) -> float:
+              generator: torch.Generator, bank=None,
+              graphed: bool = True) -> float:
     """One valid pass: losses, the submit JSON, the mean IoU it returns.
-    The pseudo videos come from ``generator``, so the pass runs batch by
-    batch, assembled on the device where there is a ``bank``."""
+    The pseudo videos come from ``generator``, batch after batch; on a
+    ``bank`` the pass is the banked epoch of :func:`_eval_epoch` in ticks
+    of ``eval_scan_group`` batches (``graphed`` on a card)."""
     pred_dict = _new_pred_dict(params)
     t0 = time.time()
-    host_batches, fetched = _eval_epoch(valid_step, loader, bank, device,
-                                        TRAIN_KEYS, generator)
+    host_batches, fetched = _eval_epoch(
+        valid_step, loader, bank, device, TRAIN_KEYS, generator,
+        group=int(params.get('eval_scan_group', 8)), _graphed=graphed)
     for i, batch in enumerate(host_batches):
         _collect_predictions(pred_dict, batch, fetched['pred_time'][i],
                              fetched['score'][i])

@@ -15,6 +15,13 @@ parameters (``group_weight_mask``). Gradients are clipped by global norm as
 rate is set before every update from :func:`lr_schedule_fn`, epoch-granular
 (``epoch = step // steps_per_epoch``): 'ms' is MultiStepLR, 'l' the
 reference's LambdaLR whose factor makes the rate lr * (lr - epoch * 1e-6).
+
+On a card Adam and AdamW are built ``capturable``, their rate a 0-d
+tensor on the card that :meth:`TrainState.set_lr` fills, so an update
+reads no number from the host and a CUDA graph can capture it; eager
+steps on the card take the same path, so the two compute the same bits.
+SGD has no capturable form (its update reads a tensor rate on the host),
+and the CPU keeps the optimizers as the reference builds them.
 """
 
 from __future__ import annotations
@@ -71,15 +78,23 @@ def decay_groups(model: nn.Module, weight_decay: float, grouped: bool
 def make_optimizer(model: nn.Module, params: Dict[str, Any]
                    ) -> torch.optim.Optimizer:
     """The reference's optimizer over ``model``'s parameters. Its learning
-    rate is set per update by :class:`TrainState`."""
+    rate is set per update by :class:`TrainState`. Adam and AdamW over
+    parameters on a card are ``capturable``, with the rate a 0-d tensor
+    on the card."""
     wd = float(params.get('weight_decay', 0.0))
     groups = decay_groups(model, wd, bool(params.get('group_weight', False)))
     lr = float(params['lr'])
     name = str(params.get('optim', 'adam')).lower()
+    opts = {'lr': lr}
+    device = next(model.parameters()).device
+    if device.type == 'cuda':
+        opts = {'lr': torch.tensor(lr, dtype=torch.float32, device=device),
+                'capturable': True}
     if name == 'adam':
-        return torch.optim.Adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-6)
+        return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-6, **opts)
     if name == 'adamw':
-        return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        return torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8,
+                                 **opts)
     if name == 'sgd':
         return torch.optim.SGD(groups, lr=lr,
                                momentum=float(params.get('momentum', 0.8)))
@@ -104,23 +119,40 @@ def clip_by_global_norm(parameters, max_norm: float) -> torch.Tensor:
 class TrainState:
     """The model, its optimizer, the schedule and the update count
     (``TrainState`` of the JAX package; here the parameters live in the
-    model and change in place)."""
+    model and change in place). ``captures``: whether a CUDA graph can
+    capture :meth:`update` (Adam and AdamW on a card)."""
 
     def __init__(self, model: nn.Module, params: Dict[str, Any],
                  steps_per_epoch: int):
         self.model = model
         self.step = 0
         self.optimizer = make_optimizer(model, params)
+        self.captures = self.optimizer.defaults.get('capturable', False)
         self.schedule = lr_schedule_fn(params, steps_per_epoch)
         self.clip = (float(params['grad_clip_max'])
                      if params.get('grad_clip') else None)
 
-    def apply_gradients(self) -> None:
-        """One update from the gradients now in the parameters' ``.grad``."""
-        if self.clip is not None:
-            clip_by_global_norm(self.model.parameters(), self.clip)
+    def set_lr(self) -> None:
+        """The schedule's rate for update ``step``, written into the
+        optimizer (filled into its tensor on a card, never replacing it:
+        a captured update reads that tensor)."""
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
-            group['lr'] = lr
+            if isinstance(group['lr'], torch.Tensor):
+                group['lr'].fill_(lr)
+            else:
+                group['lr'] = lr
+
+    def update(self) -> None:
+        """Clip the gradients now in the parameters' ``.grad`` and take
+        the optimizer's step at the rate set last; no host state changes,
+        so with ``captures`` a CUDA graph can capture it."""
+        if self.clip is not None:
+            clip_by_global_norm(self.model.parameters(), self.clip)
         self.optimizer.step()
+
+    def apply_gradients(self) -> None:
+        """One update from the gradients now in the parameters' ``.grad``."""
+        self.set_lr()
+        self.update()
         self.step += 1

@@ -7,10 +7,12 @@ Counterpart of ``shufflingvideosfortsg_tpu/train/steps.py``:
 ``make_baseline_train_step`` (``:358-393``) and
 ``make_baseline_eval_step`` (``:396-437``, top-1). Each takes an
 ``assembler`` (``data/device_bank.assemble``) that turns an attached
-index-only batch into the model batch on the device. The test and eval
-steps carry ``step.grouped``: G loader batches ``[G, B, ...]`` as one
-``[G*B]`` model pass, with each batch's loss and mIoU the mean over its
-own B rows (``_flatten_group``/``_regroup``, JAX ``:277-298``). The train
+index-only batch into the model batch on the device. The test, eval and
+GMD valid steps carry ``step.grouped``: G loader batches ``[G, B, ...]``
+as one ``[G*B]`` model pass, with each batch's loss and mIoU its own
+(``_flatten_group``/``_regroup``, JAX ``:277-298``). The GMD train step
+carries ``step.inner``, its device work alone, which a CUDA graph can
+capture (``cli._banked_train_chunks_factory``). The train
 loss is the reference's (grounding/
 train.py:140-165): grounding NLL + m1 * (intra-video BCE on raw and pseudo)
 + m2 * (inter-video span KL) + disc * (order-discrimination CE), plus
@@ -21,6 +23,8 @@ batch carries the loader's host-made pseudo stream.
 
 Random numbers come from the ``torch.Generator`` a step is given, in a
 fixed order: the pseudo videos' insertion offsets, then the dropout masks.
+No step synchronises with the host, reads a host tensor or branches on a
+value on the device.
 """
 
 from __future__ import annotations
@@ -101,10 +105,15 @@ def _regroup(per_sample: Batch, G: int, B: int) -> Batch:
     return res
 
 
-def _device_pseudo(batch: Batch, generator: torch.Generator) -> Batch:
-    """The pseudo stream made on the device from one uniform draw a row."""
+def _device_pseudo(batch: Batch, generator: torch.Generator,
+                   groups: int = 1) -> Batch:
+    """The pseudo stream made on the device from one uniform draw a row,
+    drawn as ``groups`` calls in row order: the draws of as many batches
+    of ``rows / groups`` made one after another."""
     video = batch['video_feat']
-    u = torch.rand(video.shape[0], generator=generator, device=video.device)
+    draws = [torch.rand(video.shape[0] // groups, generator=generator,
+                        device=video.device) for _ in range(groups)]
+    u = draws[0] if groups == 1 else torch.cat(draws)
     feat, framestps, masks = gt_translate_batch(u, video, batch['framestps'],
                                                 batch['nfeats'])
     return {'video_feat': feat, 'framestps': framestps, **masks}
@@ -150,7 +159,9 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
     ``on_device_aug``, their host-made pseudo videos). The metrics are the
     loss, its terms and the mean IoU of the raw stream's decoded spans,
     as 0-d tensors on the batch's device. ``step.loss_fn(batch, pseudo,
-    generator) -> (loss, aux)`` is the loss alone."""
+    generator) -> (loss, aux)`` is the loss alone. ``step.inner(batch,
+    generator)`` is the step without its host bookkeeping: the caller
+    sets ``step.state``'s rate (``set_lr``) and counts the update."""
     m1 = float(params['loss_m1_lambda'])
     m2 = float(params['loss_m2_lambda'])
     md = float(params['loss_disc_lambda'])
@@ -177,7 +188,7 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
                'start_prob': out['start_prob'], 'end_prob': out['end_prob']}
         return loss, aux
 
-    def train_step(batch: Batch, generator: torch.Generator) -> Batch:
+    def inner(batch: Batch, generator: torch.Generator) -> Batch:
         model.train()
         batch = assemble(batch)
         if on_device_aug:
@@ -187,14 +198,22 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = loss_fn(batch, pseudo, generator)
         loss.backward()
-        state.apply_gradients()
+        state.update()
         metrics = {k: v.detach() for k, v in aux.items()}
         *_, metrics['miou'] = _stats(metrics.pop('start_prob'),
                                      metrics.pop('end_prob'), batch,
                                      lg_frame2sec)
         return metrics
 
+    def train_step(batch: Batch, generator: torch.Generator) -> Batch:
+        state.set_lr()
+        metrics = inner(batch, generator)
+        state.step += 1
+        return metrics
+
     train_step.loss_fn = loss_fn
+    train_step.inner = inner
+    train_step.state = state
     return train_step
 
 
@@ -203,10 +222,21 @@ def make_gmd_valid_step(model, params: Dict[str, Any],
                         ) -> Callable[[Batch, torch.Generator], Batch]:
     """The reference's valid(): the pair forward without dropout on device-
     made pseudo videos, the losses less the discriminator term, and the
-    decoded spans for the submit file (train.py:209-318)."""
+    decoded spans for the submit file (train.py:209-318).
+    ``step.grouped(gbatch, generator)`` takes G batches [G, B, ...]: each
+    batch's pseudo draws as the step batch by batch makes them (G draws of
+    B in batch order), one [G*B] pair forward, each batch's losses over
+    its own B rows, loss terms and miou [G] and the outputs [G, B, ...];
+    the counterpart of JAX's keyed valid tick (``cli.py:513-515``)."""
     m1 = float(params['loss_m1_lambda'])
     m2 = float(params['loss_m2_lambda'])
     assemble = assembler or _identity
+
+    def losses(out, batch, pseudo):
+        loss_g, loss_intra, loss_inter = _match_losses(out, batch, pseudo,
+                                                       m1, m2)
+        return {'loss': loss_g + loss_intra + loss_inter, 'loss_g': loss_g,
+                'loss_intra': loss_intra, 'loss_inter': loss_inter}
 
     @torch.no_grad()
     def valid_step(batch: Batch, generator: torch.Generator) -> Batch:
@@ -214,14 +244,31 @@ def make_gmd_valid_step(model, params: Dict[str, Any],
         batch = assemble(batch)
         pseudo = _device_pseudo(batch, generator)
         out = _pair_forward(model, batch, pseudo, None)
-        loss_g, loss_intra, loss_inter = _match_losses(out, batch, pseudo,
-                                                       m1, m2)
         pred_f, score, miou = _stats(out['start_prob'], out['end_prob'],
                                      batch, lg_frame2sec)
-        return {'loss': loss_g + loss_intra + loss_inter, 'loss_g': loss_g,
-                'loss_intra': loss_intra, 'loss_inter': loss_inter,
-                'miou': miou, 'pred_time': pred_f, 'score': score}
+        return {**losses(out, batch, pseudo), 'miou': miou,
+                'pred_time': pred_f, 'score': score}
 
+    @torch.no_grad()
+    def grouped(gbatch: Batch, generator: torch.Generator) -> Batch:
+        model.eval()
+        flat, G, B = _flatten_group(gbatch)
+        batch = assemble(flat)
+        pseudo = _device_pseudo(batch, generator, groups=G)
+        out = _pair_forward(model, batch, pseudo, None)
+
+        def rows(d, g):
+            return {k: v[g * B:(g + 1) * B] for k, v in d.items()}
+        each = [losses(rows(out, g), rows(batch, g), rows(pseudo, g))
+                for g in range(G)]
+        pred_f, score, iou = _decode(out['start_prob'], out['end_prob'],
+                                     batch, lg_frame2sec)
+        return {**{k: torch.stack([e[k] for e in each]) for k in each[0]},
+                'miou': iou.reshape(G, B).mean(1),
+                'pred_time': pred_f.reshape(G, B, 2),
+                'score': score.reshape(G, B)}
+
+    valid_step.grouped = grouped
     return valid_step
 
 

@@ -237,8 +237,11 @@ def test_graphed_epoch_matches_eager_and_host_gather_on_cuda(corpus, kind):
         port_cli.parse_params(argv, MODELS[kind]), CPU, kind)
     ckp = os.path.join(root, f'port_{kind}.ckp')
     torch.save(model.state_dict(), ckp)
+    # ticks of 3 batches: 5 ticks, so the graph is captured after its 2
+    # eager calls and replayed
     argv = argv + _feat_argv(packs['f16']) + ['--start_from', ckp,
-                                              '--device', 'cuda']
+                                              '--device', 'cuda',
+                                              '--eval_scan_group', '3']
     run = getattr(port_cli, {'gmd': 'main_test',
                              'baseline': 'main_test_baseline'}[kind])
     graphed = [_submit(run(_params(port_cli, argv, kind, f'g{i}_{kind}',
