@@ -28,10 +28,13 @@ registered with the graph, so a graphed run draws and computes what the
 eager one does, bit for bit. The QAVE baseline trains batch by batch, as
 JAX's ``main_train_baseline`` does.
 
-Not ported yet, and refused: ``eval_topk > 1``,
-``precision: bf16``, and in training ``multi_seed``, ``pipeline_stages``,
-``tensor_parallel``, ``fsdp``, ``grad_accum_steps > 1``,
-``async_checkpoint`` and ``--start_from auto``. A non-finite training
+``eval_topk`` > 1 writes each sentence's top-k NMS proposals
+(``timestamps_topk``, ``scores_topk``; finite scores only) into the
+submit beside the top-1 span, and the retrieval table gains its R@k rows.
+
+Not ported yet, and refused: ``precision: bf16``, and in training
+``multi_seed``, ``pipeline_stages``, ``tensor_parallel``, ``fsdp``,
+``grad_accum_steps > 1``, ``async_checkpoint`` and ``--start_from auto``. A non-finite training
 loss raises at the watchdog's cadence; the JAX watchdog's emergency
 checkpoint is not ported.
 """
@@ -58,6 +61,7 @@ from .train.steps import (HOST_PAIR_KEYS, STEP_KEYS, TRAIN_KEYS,
                           make_baseline_eval_step, make_baseline_train_step,
                           make_gmd_test_step, make_gmd_train_step,
                           make_gmd_valid_step, to_device)
+from .utils.device import resolve_device
 from .utils.interop import load_reference_ckp
 from .utils.saver import RunManager
 
@@ -118,18 +122,6 @@ def setup_logger(alias: str) -> logging.Logger:
     return logger
 
 
-def resolve_device(name: str) -> torch.device:
-    """The run's device. A CUDA device must exist: the driver never falls
-    back to the CPU unless asked for it."""
-    device = torch.device(name)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(f'--device {name}: no CUDA device is available '
-                           '(pass --device cpu to run on the CPU)')
-    if device.type not in ('cuda', 'cpu'):
-        raise ValueError(f'unsupported device {name!r}')
-    return device
-
-
 def _dataset_kind(name: str) -> str:
     if name in ('charades', 'charades_cd'):
         return 'charades'
@@ -146,7 +138,8 @@ def make_dataset(params, anno_key: str, feat_key: str, kind_key: str):
     return ds
 
 
-def _collect_predictions(pred_dict, batch, pred_time, score) -> None:
+def _collect_predictions(pred_dict, batch, pred_time, score,
+                         pred_topk=None, score_topk=None) -> None:
     n = batch['n_valid']  # the last batch is padded with wrap-around rows
     pt_l = np.asarray(pred_time).tolist()
     ts_l = np.asarray(batch['timestps']).tolist()
@@ -154,13 +147,20 @@ def _collect_predictions(pred_dict, batch, pred_time, score) -> None:
     dur_l = np.asarray(batch['duration'], np.float64).tolist()
     results = pred_dict['results']
     for i in range(n):
-        results.setdefault(batch['vid'][i], []).append({
+        entry = {
             'sentence': batch['sentence'][i],
             'timestamp': pt_l[i],
             'gt_timestamp': ts_l[i],
             'score': sc_l[i],
             'video_duration': dur_l[i],
-        })
+        }
+        if pred_topk is not None:
+            # the R@k proposals (eval_topk > 1), finite scores only: NMS
+            # pads an exhausted pool with -inf repeats
+            keep = np.isfinite(np.asarray(score_topk[i]))
+            entry['timestamps_topk'] = np.asarray(pred_topk[i])[keep].tolist()
+            entry['scores_topk'] = np.asarray(score_topk[i])[keep].tolist()
+        results.setdefault(batch['vid'][i], []).append(entry)
 
 
 def _new_pred_dict(params):
@@ -729,8 +729,6 @@ def _assembler(bank):
 def _test(params: Dict[str, Any], kind: str, make_step,
           _graphed: bool = True) -> str:
     device = resolve_device(params.get('device', 'cuda'))
-    if int(params.get('eval_topk', 1) or 1) > 1:
-        raise NotImplementedError('eval_topk > 1 is not ported yet')
     pt = _PhaseTimer()
     logger = setup_logger(params['alias'])
     saver = RunManager(params)
@@ -751,7 +749,9 @@ def _test(params: Dict[str, Any], kind: str, make_step,
     model = model.to(device).eval()
     pt.mark('init')
 
-    test_step = make_step(model, lg, _assembler(test_bank))
+    topk = int(params.get('eval_topk', 1) or 1)
+    test_step = make_step(model, lg, _assembler(test_bank), topk=topk,
+                          topk_nms_iou=float(params.get('topk_nms_iou', 0.5)))
     pred_dict = _new_pred_dict(params)
     t0 = time.time()
     host_batches, fetched = _eval_epoch(
@@ -764,8 +764,10 @@ def _test(params: Dict[str, Any], kind: str, make_step,
                       params['batch_log_interval'],
                       (time.time() - t0) / max(len(host_batches), 1))
     for i, batch in enumerate(host_batches):
-        _collect_predictions(pred_dict, batch, fetched['pred_time'][i],
-                             fetched['score'][i])
+        _collect_predictions(
+            pred_dict, batch, fetched['pred_time'][i], fetched['score'][i],
+            pred_topk=fetched['pred_time_topk'][i] if topk > 1 else None,
+            score_topk=fetched['score_topk'][i] if topk > 1 else None)
     submit = saver.save_submits(pred_dict, 0, 'test_data')
     # the reference's "elapsed time": eval loop + decode + collect +
     # submit write; not the model build, checkpoint load or scoring

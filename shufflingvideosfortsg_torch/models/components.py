@@ -61,12 +61,17 @@ class SCDMAttention(nn.Module):
         self.W_a = nn.Linear(video_dim, hidden_dim)
         self.w = nn.Linear(hidden_dim, 1, bias=False)
 
-    def forward(self, video_feat: torch.Tensor, sent_feat: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, video_feat: torch.Tensor, sent_feat: torch.Tensor,
+                video_proj: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``video_proj`` is ``W_a(video_feat)`` when the caller has it
+        (serving projects one video once and expands it over the
+        queries); otherwise it is computed here."""
         sent_feat = sent_feat.contiguous()
         fn = (scdm_attention_fused_trainable if torch.is_grad_enabled()
               else scdm_attention_fused)
-        return fn(self.W_a(video_feat).contiguous(),
+        if video_proj is None:
+            video_proj = self.W_a(video_feat)
+        return fn(video_proj.contiguous(),
                   self.W_s(sent_feat).contiguous(), self.w.weight[0],
                   sent_feat)
 
@@ -91,9 +96,10 @@ class RNNRecalibrationLayer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.rnn_cell['lstm'](video_feat, generator)[0]
 
-    def apply_gate(self, rnn_output: torch.Tensor,
-                   word_feat: torch.Tensor) -> torch.Tensor:
-        channel_attn = self.sent_linear(self.attention(rnn_output, word_feat))
+    def apply_gate(self, rnn_output: torch.Tensor, word_feat: torch.Tensor,
+                   video_proj: Optional[torch.Tensor] = None) -> torch.Tensor:
+        channel_attn = self.sent_linear(self.attention(rnn_output, word_feat,
+                                                       video_proj))
         gate = _GATES.get(self.ca_activ)
         if gate is not None:
             channel_attn = gate(channel_attn)
@@ -125,6 +131,34 @@ class QueryAwareEncoder(nn.Module):
         for block in self.blocks:
             residual = block(residual, word_feat, generator)
         return self.norm(residual)
+
+    def block0_rnn(self, video_feat: torch.Tensor) -> torch.Tensor:
+        """The query-independent block-0 recurrence of resident [V, T, D]
+        video(s): computed once a video, reused by every query batch."""
+        return self.blocks[0].run_rnn(video_feat)
+
+    def finish_from_rnn0(self, rnn0: torch.Tensor, word_feat: torch.Tensor,
+                         video_proj: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """The query-dependent rest, given each query's block-0
+        recurrence rnn0 [Q, T, 2H] (gathered from a bank, or one video's
+        expanded over Q) and, optionally, its SCDM projection
+        ``W_a(rnn0)``: block 0's gate, the later blocks, the norm."""
+        residual = self.blocks[0].apply_gate(rnn0, word_feat, video_proj)
+        for block in self.blocks[1:]:
+            residual = block(residual, word_feat)
+        return self.norm(residual)
+
+    def shared_video_from_rnn0(self, rnn0: torch.Tensor,
+                               word_feat: torch.Tensor) -> torch.Tensor:
+        """:meth:`finish_from_rnn0` for one video's rnn0 [1, T, 2H] against
+        Q queries: block 0's SCDM projection of the video runs once, and
+        the recurrence and projection are expanded over Q, not copied;
+        block 0's gate writes the [Q, T, 2H] product once."""
+        Q = word_feat.shape[0]
+        video_proj = self.blocks[0].attention.W_a(rnn0)
+        return self.finish_from_rnn0(rnn0.expand(Q, -1, -1), word_feat,
+                                     video_proj.expand(Q, -1, -1))
 
 
 def _check_cmi(name: str) -> None:

@@ -1,7 +1,8 @@
 """GMD: the shuffling-framework grounding model.
 
 Counterpart of ``shufflingvideosfortsg_tpu/models/gmd.py`` (``:25-83``
-construction, ``:85-177`` the pair forward, ``:179-195`` ``eval_forward``).
+construction, ``:85-177`` the pair forward, ``:179-195`` ``eval_forward``,
+``:197-294`` serving over a cached block-0 recurrence).
 The raw and pseudo videos run through the shared video encoder and CSMM
 as one [2B] batch. Dropout follows ``self.training``, with masks from the
 generator a forward is given. Submodules carry the
@@ -145,6 +146,14 @@ class GMD(nn.Module):
         reference does. ``sent_mask`` is accepted and unused, as there."""
         word_feat, sent_embed = self.sentence_encoder(query_feat)
         frame_feat = self.video_encoder(video_feat, word_feat)
+        return self._ground(frame_feat, word_feat, sent_embed, video_mask)
+
+    def _ground(self, frame_feat: torch.Tensor, word_feat: torch.Tensor,
+                sent_embed: torch.Tensor,
+                video_mask: Optional[torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """Everything after the video encoder at inference: the cross
+        features, the CSMM gate and the span heads."""
         cross_feat = cmi_apply(self.cross_name, frame_feat, word_feat,
                                sent_embed)
         match_prob, _ = self.csmm(frame_feat, sent_embed, video_mask)
@@ -153,3 +162,48 @@ class GMD(nn.Module):
             v_mask=video_mask if self.video_if_mask else None)
         return {'start_prob': start_prob, 'end_prob': end_prob,
                 'match_prob': match_prob}
+
+    # -- serving (JAX ``models/gmd.py:197-294``) ----------------------------
+    def precompute_video(self, video_feat: torch.Tensor) -> torch.Tensor:
+        """The query-independent block-0 recurrence [V, T, 2H] of resident
+        [V, T, D] video(s): V=1 for one video, any V for a bank."""
+        return self.video_encoder.block0_rnn(video_feat)
+
+    def serve_cached_multi(self, rnn0_bank: torch.Tensor,
+                           query_feat: torch.Tensor,
+                           video_ids: torch.Tensor
+                           ) -> Dict[str, torch.Tensor]:
+        """Query i against bank video ``video_ids[i]`` of a bank of
+        block-0 recurrences [V, T, 2H]."""
+        return self.serve_gathered(rnn0_bank[video_ids], query_feat)
+
+    def serve_gathered(self, rnn0_q: torch.Tensor, query_feat: torch.Tensor
+                       ) -> Dict[str, torch.Tensor]:
+        """:meth:`serve_cached_multi` with the rows already gathered (the
+        int8 bank gathers and dequantises them first)."""
+        word_feat, sent_embed = self.sentence_encoder(query_feat)
+        frame_feat = self.video_encoder.finish_from_rnn0(rnn0_q, word_feat)
+        return self._ground(frame_feat, word_feat, sent_embed, None)
+
+    def serve_cached(self, rnn0: torch.Tensor, query_feat: torch.Tensor,
+                     video_mask: Optional[torch.Tensor] = None
+                     ) -> Dict[str, torch.Tensor]:
+        """Q queries against one video whose block-0 recurrence [1, T, 2H]
+        :meth:`precompute_video` made."""
+        Q = query_feat.shape[0]
+        word_feat, sent_embed = self.sentence_encoder(query_feat)
+        frame_feat = self.video_encoder.shared_video_from_rnn0(rnn0,
+                                                               word_feat)
+        vmask = None
+        if video_mask is not None:
+            vmask = video_mask.expand(Q, video_mask.shape[-1])
+        return self._ground(frame_feat, word_feat, sent_embed, vmask)
+
+    def serve_multi_query(self, video_feat: torch.Tensor,
+                          query_feat: torch.Tensor,
+                          video_mask: Optional[torch.Tensor] = None
+                          ) -> Dict[str, torch.Tensor]:
+        """Q sentences [Q, N, 300] against one video [1, T, D]: block 0's
+        recurrence runs once for the video, the rest over Q."""
+        return self.serve_cached(self.precompute_video(video_feat),
+                                 query_feat, video_mask)

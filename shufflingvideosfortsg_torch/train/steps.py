@@ -3,9 +3,11 @@ eval steps.
 
 Counterpart of ``shufflingvideosfortsg_tpu/train/steps.py``:
 ``make_gmd_train_step`` (``:118-224``), ``make_gmd_valid_step``
-(``:227-269``), ``make_gmd_test_step`` (``:301-351``, top-1),
+(``:227-269``), ``make_gmd_test_step`` (``:301-351``),
 ``make_baseline_train_step`` (``:358-393``) and
-``make_baseline_eval_step`` (``:396-437``, top-1). Each takes an
+``make_baseline_eval_step`` (``:396-437``); with ``topk`` > 1 the test
+and eval steps also give each sentence's top-k NMS proposals
+(``_topk_stats``, JAX ``:37``). Each takes an
 ``assembler`` (``data/device_bank.assemble``) that turns an attached
 index-only batch into the model batch on the device. The test, eval and
 GMD valid steps carry ``step.grouped``: G loader batches ``[G, B, ...]``
@@ -39,7 +41,7 @@ from ..ops.augment_device import gt_translate_batch
 from ..ops.losses import (bce_loss, masked_softmax, matching_kl_divergence,
                           span_ground_loss, span_ground_nll,
                           temporal_order_discrimination_loss)
-from ..ops.span import iou_per_sample, span_decode
+from ..ops.span import iou_per_sample, span_decode, span_topk_nms
 from .state import TrainState
 
 # batch keys the test step reads, moved to the device per batch
@@ -83,6 +85,20 @@ def _stats(start_prob, end_prob, batch: Batch, lg_frame2sec: bool):
     """(pred_time [B, 2] f32, score [B], mean IoU) of the decoded spans."""
     pred_f, score, iou = _decode(start_prob, end_prob, batch, lg_frame2sec)
     return pred_f, score, iou.mean()
+
+
+def _topk_stats(start_prob, end_prob, batch: Batch, lg_frame2sec: bool,
+                k: int, nms_iou: float):
+    """(proposals [B, k, 2] f32 in prediction time units, scores [B, k]):
+    the top-k spans after NMS; an exhausted pool repeats its last span
+    with score -inf."""
+    spans, scores = span_topk_nms(start_prob, end_prob, k,
+                                  iou_threshold=nms_iou)
+    spans_f = spans.float()
+    if lg_frame2sec:
+        scale = batch['duration'] / batch['nfeats'].float()
+        spans_f = spans_f * scale[:, None, None].float()
+    return spans_f, scores
 
 
 def _flatten_group(gbatch: Batch):
@@ -272,15 +288,18 @@ def make_gmd_valid_step(model, params: Dict[str, Any],
     return valid_step
 
 
-def make_gmd_test_step(model, lg_frame2sec: bool = False, assembler=None
+def make_gmd_test_step(model, lg_frame2sec: bool = False, assembler=None,
+                       topk: int = 1, topk_nms_iou: float = 0.5
                        ) -> Callable[[Batch], Batch]:
     """Returns step(batch) -> {loss, miou, pred_time [B, 2], score [B]} on
     the batch's device, from the model in eval mode (no dropout, whatever
     mode a train step left it in). loss and miou average over all B rows,
-    padded wrap-around rows included, as the JAX step does.
-    ``step.grouped(gbatch)`` takes [G, B, ...] batches in one [G*B] pass
-    and returns loss and miou [G] and the outputs [G, B, ...]. Neither
-    synchronises with the host, so a CUDA graph can capture them."""
+    padded wrap-around rows included, as the JAX step does. ``topk`` > 1
+    adds ``pred_time_topk`` [B, topk, 2] and ``score_topk`` [B, topk],
+    the NMS proposals at ``topk_nms_iou``; the top-1 outputs are
+    unchanged. ``step.grouped(gbatch)`` takes [G, B, ...] batches in one
+    [G*B] pass and returns loss and miou [G] and the outputs [G, B, ...].
+    Neither synchronises with the host, so a CUDA graph can capture them."""
     assemble = assembler or _identity
 
     @torch.no_grad()
@@ -293,7 +312,12 @@ def make_gmd_test_step(model, lg_frame2sec: bool = False, assembler=None
                               batch['framestps'])
         pred_f, score, iou = _decode(out['start_prob'], out['end_prob'],
                                      batch, lg_frame2sec)
-        return {'nll': nll, 'iou': iou, 'pred_time': pred_f, 'score': score}
+        res = {'nll': nll, 'iou': iou, 'pred_time': pred_f, 'score': score}
+        if topk > 1:
+            res['pred_time_topk'], res['score_topk'] = _topk_stats(
+                out['start_prob'], out['end_prob'], batch, lg_frame2sec,
+                topk, topk_nms_iou)
+        return res
 
     def test_step(batch: Batch) -> Batch:
         out = per_sample(batch)
@@ -344,12 +368,12 @@ def make_baseline_train_step(model, state: TrainState,
 
 
 def make_baseline_eval_step(model, lg_frame2sec: bool = False,
-                            assembler=None, topk: int = 1
+                            assembler=None, topk: int = 1,
+                            topk_nms_iou: float = 0.5
                             ) -> Callable[[Batch], Batch]:
     """The baseline's valid and test step: ``make_gmd_test_step``'s
-    {loss, miou, pred_time, score} and ``grouped`` pass on the model's
+    outputs (top-k ones too) and ``grouped`` pass on the model's
     ``eval_forward`` in eval mode, which for the baseline is its forward
     without dropout."""
-    if topk > 1:
-        raise NotImplementedError('eval_topk > 1 is not ported yet')
-    return make_gmd_test_step(model, lg_frame2sec, assembler)
+    return make_gmd_test_step(model, lg_frame2sec, assembler, topk,
+                              topk_nms_iou)

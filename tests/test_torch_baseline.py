@@ -243,8 +243,14 @@ def test_baseline_steps_refuse_what_is_not_ported():
     model = build_model(params, 'baseline', device='cpu')
     with pytest.raises(NotImplementedError, match='grad_accum_steps'):
         make_baseline_train_step(model, TrainState(model, params, 1), params)
-    with pytest.raises(NotImplementedError, match='eval_topk'):
-        make_baseline_eval_step(model, topk=3)
+    # eval_topk > 1 is ported: the step adds each row's NMS proposals
+    b = _batch()
+    out = make_baseline_eval_step(model, topk=3)(
+        {k: _t(b[k]) for k in STEP_KEYS})
+    B = out['pred_time'].shape[0]
+    assert out['pred_time_topk'].shape == (B, 3, 2)
+    assert out['score_topk'].shape == (B, 3)
+    assert torch.equal(out['pred_time_topk'][:, 0], out['pred_time'])
 
 
 # --- the drivers ---------------------------------------------------------------

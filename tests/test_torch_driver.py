@@ -88,9 +88,24 @@ def test_port_driver_debug_keeps_four_batches(corpus):
 
 
 def test_port_driver_refuses_top_k(corpus):
-    argv, _ = corpus
+    """``eval_topk`` > 1 is no longer refused (the JAX driver's top-k
+    submit is held in tests/test_torch_serving.py): every sentence gets
+    its proposals, the first the top-1 span, the rest non-overlapping
+    past the NMS threshold. ``precision: bf16`` is still refused."""
+    argv, n = corpus
     params = port_cli.parse_params(
         argv + ['--alias', 'test_port_topk', '--device', 'cpu',
                 '--eval_topk', '3'], default_model='GMD')
-    with pytest.raises(NotImplementedError, match='eval_topk'):
-        port_cli.main_test(params)
+    with open(port_cli.main_test(params)) as f:
+        results = json.load(f)['results']
+    rows = [r for v in results.values() for r in v]
+    assert len(rows) == n
+    for r in rows:
+        props = r['timestamps_topk']
+        assert 1 <= len(props) == len(r['scores_topk']) <= 3
+        assert props[0] == r['timestamp']
+        assert r['scores_topk'] == sorted(r['scores_topk'], reverse=True)
+    with pytest.raises(NotImplementedError, match='bf16'):
+        port_cli.main_test(port_cli.parse_params(
+            argv + ['--alias', 'test_port_bf16', '--device', 'cpu',
+                    '--precision', 'bf16'], default_model='GMD'))

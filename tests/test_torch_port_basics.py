@@ -3,6 +3,7 @@ points never fall back to the CPU, and its kernel wrappers take their
 plain versions only for CPU tensors."""
 
 import ast
+import inspect
 import os
 import pkgutil
 import subprocess
@@ -72,6 +73,35 @@ def test_port_sources_import_no_jax():
             else:
                 continue
             assert not set(roots) & set(FORBIDDEN), (path, node.lineno)
+
+
+SERVING_MODULES = ('shufflingvideosfortsg_torch.serving',
+                   'shufflingvideosfortsg_torch.gateway',
+                   'shufflingvideosfortsg_torch.data.text_native',
+                   'shufflingvideosfortsg_torch.profile_serve')
+
+
+def test_scans_cover_the_serving_modules():
+    """The two scans above walk the whole package; the serving tier is in
+    what they walk."""
+    assert set(SERVING_MODULES) <= set(_port_modules())
+    for name in SERVING_MODULES:
+        path = os.path.join(REPO, *name.split('.')) + '.py'
+        assert os.path.isfile(path), path
+
+
+def test_serving_runs_on_cuda_by_default(monkeypatch):
+    """The grounder's device defaults to ``cuda`` and a missing card
+    raises before any work; ``profile_serve`` measures on a card only."""
+    from shufflingvideosfortsg_torch import profile_serve
+    from shufflingvideosfortsg_torch.serving import MultiQueryGrounder
+    sig = inspect.signature(MultiQueryGrounder)
+    assert sig.parameters['device'].default == 'cuda'
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        MultiQueryGrounder({}, {})
+    with pytest.raises(SystemExit, match='needs a CUDA device'):
+        profile_serve.main([])
 
 
 def test_device_flag_defaults_to_cuda():
