@@ -50,10 +50,10 @@ _SIGNATURES = {
     'svtsg_lstm_bwd_active_clusters': [_I] * 5,
     'svtsg_lstm_weight_grad': [_P] * 3 + [_I] * 8 + [_P],
     'svtsg_lstm_weight_grad_active_clusters': [_I] * 5,
-    'svtsg_scdm_attention': [_P] * 6 + [_I] * 7 + [_P],
+    'svtsg_scdm_attention': [_P] * 6 + [_I] * 8 + [_P],
     'svtsg_scdm_bwd': [_P] * 8 + [_I] * 9 + [_P],
     'svtsg_scdm_bwd_smem_bytes': [_I] * 3,
-    'svtsg_scdm_smem_bytes': [_I] * 2,
+    'svtsg_scdm_smem_bytes': [_I] * 3,
     'svtsg_scdm_tanh': [_P] * 2 + [_I] * 2 + [_P],
 }
 

@@ -32,8 +32,10 @@ JAX's ``main_train_baseline`` does.
 (``timestamps_topk``, ``scores_topk``; finite scores only) into the
 submit beside the top-1 span, and the retrieval table gains its R@k rows.
 
-Not ported yet, and refused: ``precision: bf16``, and in training
-``multi_seed``, ``pipeline_stages``, ``tensor_parallel``, ``fsdp``,
+``precision: bf16`` runs the test drivers (and the grounder) in bf16 with
+f32 weights, as the JAX package does. Not ported yet, and refused in
+training: ``precision: bf16`` (ROADMAP §1 item 5b), ``multi_seed``,
+``pipeline_stages``, ``tensor_parallel``, ``fsdp``,
 ``grad_accum_steps > 1``, ``async_checkpoint`` and ``--start_from auto``. A non-finite training
 loss raises at the watchdog's cadence; the JAX watchdog's emergency
 checkpoint is not ported.
@@ -55,13 +57,13 @@ from .config import DEFAULTS, load_config
 from .data.device_bank import INDEX_KEYS, maybe_device_bank
 from .data.pipeline import BatchLoader, SentenceGroundingDataset
 from .eval.iou import retrieval_eval
-from .models.build import build_model
+from .models.build import build_model, compute_dtype
 from .train.state import TrainState
 from .train.steps import (HOST_PAIR_KEYS, STEP_KEYS, TRAIN_KEYS,
                           make_baseline_eval_step, make_baseline_train_step,
                           make_gmd_test_step, make_gmd_train_step,
                           make_gmd_valid_step, to_device)
-from .utils.device import resolve_device
+from .utils.device import exact_bf16_products, resolve_device
 from .utils.interop import load_reference_ckp
 from .utils.saver import RunManager
 
@@ -211,6 +213,8 @@ def _seeded_model(params: Dict[str, Any], device: torch.device,
 
 def _refuse_unported_training(params: Dict[str, Any]) -> None:
     refused = {
+        'precision bf16 (ROADMAP.md §1 item 5b)':
+            compute_dtype(params) == torch.bfloat16,
         'multi_seed': int(params.get('multi_seed', 0) or 0) > 1,
         'pipeline_stages': int(params.get('pipeline_stages', 0) or 0) > 0,
         'tensor_parallel': int(params.get('tensor_parallel', 0) or 0) > 1,
@@ -436,14 +440,12 @@ def _banked_train_chunks_factory(train_step, bank, device: torch.device,
     draws from the generator and updates the weights exactly as K calls of
     the step would.
 
-    On a card with ``graphed`` and an optimizer that a graph captures
-    (``state.captures``), the updates run through a :class:`_GraphedTick`
-    kept on the step (:func:`_tick_runner`): the epoch's first updates
-    warm up eagerly, the next is captured, and every later one, the tail
-    chunk's too, is a replay of that graph. Otherwise every update runs
-    eagerly."""
+    On a card with ``graphed`` the updates run through a
+    :class:`_GraphedTick` kept on the step (:func:`_tick_runner`): the
+    epoch's first updates warm up eagerly, the next is captured, and every
+    later one, the tail chunk's too, is a replay of that graph. Otherwise
+    every update runs eagerly."""
     state = train_step.state
-    graphed = graphed and state.captures
 
     def run(host_chunk, generator: torch.Generator):
         dev, shapes = _upload(_stack_indices(host_chunk), device)
@@ -575,10 +577,6 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
     if hasattr(train_step, 'inner') and train_bank is not None and chunk > 1:
         run_chunk = _banked_train_chunks_factory(train_step, train_bank,
                                                  device, graphed)
-        if graphed and device.type == 'cuda' and not state.captures:
-            logger.warning('optim %s: a CUDA graph cannot capture its '
-                           'update, so the chunks run their steps eagerly',
-                           params.get('optim'))
 
     statistics = {'loss': {}, 'mIoU': {}}
     log_iv = params['batch_log_interval']
@@ -729,6 +727,8 @@ def _assembler(bank):
 def _test(params: Dict[str, Any], kind: str, make_step,
           _graphed: bool = True) -> str:
     device = resolve_device(params.get('device', 'cuda'))
+    if device.type == 'cuda':
+        exact_bf16_products()
     pt = _PhaseTimer()
     logger = setup_logger(params['alias'])
     saver = RunManager(params)

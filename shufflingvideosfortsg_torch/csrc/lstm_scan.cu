@@ -3,7 +3,8 @@
 // One kernel template serves four Pallas TPU kernels of
 // shufflingvideosfortsg_tpu/ops/pallas/lstm_scan.py:
 //   K1  `lstm_scan_pallas_flat` (:303, body `_lstm_kernel_flat` :159):
-//       flat layout, f32;
+//       flat layout, f32, or xw/out and w_hh both bf16 (the model at
+//       `precision: bf16`, whose BiLSTM casts w_hh to bf16: ops/rnn.py:213);
 //   K3  `lstm_scan_pallas_train_flat` (:970, body :663): K1 plus the c_seq
 //       residual for the backward kernel;
 //   K6a `lstm_scan_pallas` (:549, body `_lstm_kernel` :65): stacked layout,
@@ -315,8 +316,8 @@ int svtsg_lstm_active_clusters(int H, int rows, int x_bytes, int w_global,
 
 // Launch the recurrence on `stream` over a batch of B rows cut into
 // n_slices near-equal row slices, one cluster a (direction, slice). layout:
-// kFlat (f32 only, no gates_bf16: K1, K3) or kStacked (K6a, K6b); xw_dtype /
-// w_dtype: kF32 or kBF16. c_seq is the [T, 2, B, H] residual (K3, K6b) or
+// kFlat (xw and w_hh both f32 or both bf16, no gates_bf16: K1, K3) or
+// kStacked (K6a, K6b); xw_dtype / w_dtype: kF32 or kBF16. c_seq is the [T, 2, B, H] residual (K3, K6b) or
 // null (K1, K6a). w_glob is null (the W slices in shared memory, or in
 // registers at H = 256) or 2 * 8 * H * (H/8 | 1) float4 of device memory,
 // where a layout kernel first writes the slices for the recurrence to read
@@ -331,8 +332,10 @@ int svtsg_lstm_recurrence(const void* xw, const void* w_hh, void* out,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const FwdArgs a{xw, w_hh, out, h_T, c_T, c_seq,
                     static_cast<float4*>(w_glob), T, B, H, n_slices};
-    if (layout == kFlat && xw_dtype == kF32 && w_dtype == kF32 && !gates_bf16)
-        return launch<kFlat, float, float, false>(a, st);
+    if (layout == kFlat && !gates_bf16 && xw_dtype == w_dtype
+        && (xw_dtype == kF32 || xw_dtype == kBF16))
+        return xw_dtype == kF32 ? launch<kFlat, float, float, false>(a, st)
+                                : launch<kFlat, bf16, bf16, false>(a, st);
     if (layout != kStacked) return cudaErrorInvalidValue;
     if (xw_dtype == kF32 && w_dtype == kF32)
         return launch_stacked<float, float>(a, gates_bf16, st);

@@ -76,14 +76,16 @@ BWD_CASES = ((64, 128, 15, 512, 512), (64, 128, 25, 512, 512),
              (8, 128, 40, 2048, 2048))
 
 
-def scdm_bound(B: int, T: int, N: int, Dh: int, Ds: int, keep_p: bool):
+def scdm_bound(B: int, T: int, N: int, Dh: int, Ds: int, keep_p: bool,
+               elem_bytes: int = 4):
     """The least time of the forward: (ms, 'operations' or 'bytes'). One
     add, one tanh and one multiply-add per (b,t,n,k), counted as 4 f32
     operations, and one multiply-add per (b,t,n,d) of the context; each
-    input read once, C (and P where kept) written once."""
+    input read once, C (and P where kept, in f32) written once, the
+    inputs and C in elements of ``elem_bytes`` (f32 4, bf16 2)."""
     flops = B * T * N * 4 * Dh + B * T * N * 2 * Ds
-    nbytes = 4 * (B * T * Dh + B * N * Dh + Dh + B * N * Ds + B * T * Ds
-                  + (B * T * N if keep_p else 0))
+    nbytes = (elem_bytes * (B * T * Dh + B * N * Dh + Dh + B * N * Ds
+                            + B * T * Ds) + (4 * B * T * N if keep_p else 0))
     return bound_ms(flops, nbytes)
 
 

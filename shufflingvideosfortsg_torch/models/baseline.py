@@ -8,6 +8,7 @@ torch names, so ``state_dict()`` keys equal those that
 ``utils/torch_interop.convert_to_reference_state_dict(kind='baseline')``
 writes and a reference ``.ckp`` loads strictly. Dropout follows
 ``self.training``, with masks from the generator a forward is given.
+``dtype`` is the compute dtype, as GMD's.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ class Baseline(nn.Module):
                  video_hidden: int = 256, video_layers: int = 2,
                  nblocks: int = 2, cross_name: str = 'vs',
                  predictor_name: str = 'mlp', mlp_hidden_dim: int = 256,
-                 video_if_mask: bool = False, dropout: float = 0.5):
+                 video_if_mask: bool = False, dropout: float = 0.5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if video_encoder_name.lower() not in ('query_aware_encoder', 'qae',
                                               'qave'):
@@ -37,14 +39,15 @@ class Baseline(nn.Module):
         self.cross_name = cross_name
         self.video_if_mask = video_if_mask
         sent_dim = 2 * sent_hidden
+        self.dtype = dtype
         self.sentence_encoder = SentenceRNNEncoder(word_dim, sent_hidden,
-                                                   sent_layers, dropout)
+                                                   sent_layers, dropout, dtype)
         self.video_encoder = QueryAwareEncoder(
             video_feature_dim, video_hidden, video_layers, nblocks, sent_dim,
-            dropout)
+            dropout, dtype=dtype)
         self.span_predictor = SpanPredictorBoundary(
             predictor_name, cmi_dim(cross_name, 2 * video_hidden, sent_dim),
-            mlp_hidden_dim)
+            mlp_hidden_dim, dtype)
 
     def forward(self, video_feat: torch.Tensor, query_feat: torch.Tensor,
                 video_mask: Optional[torch.Tensor] = None,

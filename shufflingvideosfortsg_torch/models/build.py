@@ -1,9 +1,10 @@
 """Model construction from the flat parameter namespace.
 
-Counterpart of ``shufflingvideosfortsg_tpu/models/build.py:34-75``. There
+Counterpart of ``shufflingvideosfortsg_tpu/models/build.py:14-75``. There
 is no ``fused_inference`` switch: the device of the tensors picks the
 implementation (kernels on a CUDA device, their plain versions on the
-CPU).
+CPU). ``precision`` picks the compute dtype, f32 or bf16, as JAX's
+``_dtype`` does; the weights stay f32 either way.
 """
 
 from __future__ import annotations
@@ -20,10 +21,13 @@ GMD_KINDS = ('gmd', 'qave_match')
 BASELINE_KINDS = ('baseline', 'qave')
 
 
+def compute_dtype(params: Dict[str, Any]) -> torch.dtype:
+    """bf16 for ``precision`` bf16 (or bfloat16), else f32."""
+    bf16 = str(params.get('precision', 'f32')).lower() in ('bf16', 'bfloat16')
+    return torch.bfloat16 if bf16 else torch.float32
+
+
 def model_config_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
-    if str(params.get('precision', 'f32')).lower() in ('bf16', 'bfloat16'):
-        raise NotImplementedError('precision bf16 is not ported yet; the '
-                                  'kernels take float32 only')
     return dict(
         video_feature_dim=params['video_feature_dim'],
         word_dim=params['sent_embedding_dim'],
@@ -41,6 +45,7 @@ def model_config_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
         mlp_hidden_dim=params['mlp_hidden_dim'],
         video_if_mask=bool(params['mask']),
         dropout=params['dropout'],
+        dtype=compute_dtype(params),
     )
 
 

@@ -9,6 +9,13 @@ default init; LayerNorm is ``nn.LayerNorm`` (eps 1e-5). The other span
 predictors, video encoders, CSMM temporal models and CMI modes arrive with
 the variants slice and raise here. Dropout masks come from the
 ``generator`` a forward is given (``ops/rnn.py::dropout``).
+
+Every module takes the compute ``dtype`` of the JAX modules (f32, or bf16
+at ``precision: bf16``); the parameters stay f32. The dense layers and
+LayerNorm run through ``ops/dense.py`` (JAX's ``TDense`` and
+``LayerNorm``), the element-wise operations on tensors of that dtype,
+each result rounded, as XLA rounds them with excess precision off; the
+span heads' softmax takes f32 logits (``:328-336``).
 """
 
 from __future__ import annotations
@@ -18,16 +25,21 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..ops.dense import layer_norm, linear
 from ..ops.losses import mask_logits
 from ..ops.rnn import BiLSTM, dropout
 from ..ops.scdm_fused import (scdm_attention_fused,
                               scdm_attention_fused_trainable)
 
 
-def _rnn_cell(input_size: int, hidden: int, layers: int,
-              dropout: float) -> nn.ModuleDict:
+F32 = torch.float32
+
+
+def _rnn_cell(input_size: int, hidden: int, layers: int, dropout: float,
+              dtype: torch.dtype) -> nn.ModuleDict:
     """The reference's ``rnn_cell`` holder: keys ``rnn_cell.lstm.*``."""
-    return nn.ModuleDict({'lstm': BiLSTM(input_size, hidden, layers, dropout)})
+    return nn.ModuleDict({'lstm': BiLSTM(input_size, hidden, layers, dropout,
+                                         dtype)})
 
 
 class SentenceRNNEncoder(nn.Module):
@@ -36,17 +48,19 @@ class SentenceRNNEncoder(nn.Module):
     layer's final forward and backward states, concatenated."""
 
     def __init__(self, word_dim: int, hidden_dim: int, n_layers: int,
-                 dropout: float):
+                 dropout: float, dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.textual_dim = 2 * hidden_dim
         self.word_embed = nn.Linear(word_dim, word_dim)
-        self.rnn_cell = _rnn_cell(word_dim, hidden_dim, n_layers, dropout)
+        self.rnn_cell = _rnn_cell(word_dim, hidden_dim, n_layers, dropout,
+                                  dtype)
 
     def forward(self, query_feat: torch.Tensor,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        word_encoding, hn, _ = self.rnn_cell['lstm'](self.word_embed(query_feat),
-                                                     generator)
+        word_encoding, hn, _ = self.rnn_cell['lstm'](
+            linear(self.word_embed, query_feat, self.dtype), generator)
         return word_encoding, torch.cat([hn[-2], hn[-1]], dim=-1)
 
 
@@ -55,25 +69,32 @@ class SCDMAttention(nn.Module):
     through the K2 kernel (``ops/scdm_fused.py``), or K5 (K2 with a
     backward) when gradients are on."""
 
-    def __init__(self, video_dim: int, sent_dim: int, hidden_dim: int):
+    def __init__(self, video_dim: int, sent_dim: int, hidden_dim: int,
+                 dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.W_s = nn.Linear(sent_dim, hidden_dim, bias=False)
         self.W_a = nn.Linear(video_dim, hidden_dim)
         self.w = nn.Linear(hidden_dim, 1, bias=False)
 
+    def project_video(self, video_feat: torch.Tensor) -> torch.Tensor:
+        """``W_a`` of the video features, in the compute dtype."""
+        return linear(self.W_a, video_feat, self.dtype)
+
     def forward(self, video_feat: torch.Tensor, sent_feat: torch.Tensor,
                 video_proj: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``video_proj`` is ``W_a(video_feat)`` when the caller has it
-        (serving projects one video once and expands it over the
-        queries); otherwise it is computed here."""
+        """``video_proj`` is :meth:`project_video` of ``video_feat`` when
+        the caller has it (serving projects one video once and expands it
+        over the queries); otherwise it is computed here. ``sent_feat``
+        (the word encodings) is already in the compute dtype."""
         sent_feat = sent_feat.contiguous()
         fn = (scdm_attention_fused_trainable if torch.is_grad_enabled()
               else scdm_attention_fused)
         if video_proj is None:
-            video_proj = self.W_a(video_feat)
+            video_proj = self.project_video(video_feat)
         return fn(video_proj.contiguous(),
-                  self.W_s(sent_feat).contiguous(), self.w.weight[0],
-                  sent_feat)
+                  linear(self.W_s, sent_feat, self.dtype).contiguous(),
+                  self.w.weight[0].to(self.dtype), sent_feat)
 
 
 _GATES = {'sigmoid': torch.sigmoid, 'relu': torch.relu, 'tanh': torch.tanh}
@@ -85,11 +106,15 @@ class RNNRecalibrationLayer(nn.Module):
     can run once per video for many queries (the serving slice)."""
 
     def __init__(self, input_dim: int, hidden_dim: int, n_layers: int,
-                 sent_dim: int, ca_activ: str, dropout: float):
+                 sent_dim: int, ca_activ: str, dropout: float,
+                 dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.ca_activ = ca_activ
-        self.rnn_cell = _rnn_cell(input_dim, hidden_dim, n_layers, dropout)
-        self.attention = SCDMAttention(2 * hidden_dim, sent_dim, 2 * hidden_dim)
+        self.rnn_cell = _rnn_cell(input_dim, hidden_dim, n_layers, dropout,
+                                  dtype)
+        self.attention = SCDMAttention(2 * hidden_dim, sent_dim,
+                                       2 * hidden_dim, dtype)
         self.sent_linear = nn.Linear(sent_dim, 2 * hidden_dim)
 
     def run_rnn(self, video_feat: torch.Tensor,
@@ -98,11 +123,14 @@ class RNNRecalibrationLayer(nn.Module):
 
     def apply_gate(self, rnn_output: torch.Tensor, word_feat: torch.Tensor,
                    video_proj: Optional[torch.Tensor] = None) -> torch.Tensor:
-        channel_attn = self.sent_linear(self.attention(rnn_output, word_feat,
-                                                       video_proj))
+        channel_attn = linear(self.sent_linear,
+                              self.attention(rnn_output, word_feat,
+                                             video_proj), self.dtype)
         gate = _GATES.get(self.ca_activ)
         if gate is not None:
             channel_attn = gate(channel_attn)
+        # an int8 bank's rows arrive f32: their product with the gate is
+        # f32, as JAX promotes it, and the next block casts it
         return rnn_output * channel_attn
 
     def forward(self, video_feat: torch.Tensor, word_feat: torch.Tensor,
@@ -115,13 +143,14 @@ class QueryAwareEncoder(nn.Module):
 
     def __init__(self, input_dim: int, hidden_dim: int, n_layers: int,
                  nblocks: int, sent_dim: int, dropout: float,
-                 ca_activ: str = 'sigmoid'):
+                 ca_activ: str = 'sigmoid', dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.visual_dim = 2 * hidden_dim
         self.blocks = nn.ModuleList(
             RNNRecalibrationLayer(input_dim if i == 0 else 2 * hidden_dim,
                                   hidden_dim, n_layers, sent_dim, ca_activ,
-                                  dropout)
+                                  dropout, dtype)
             for i in range(nblocks))
         self.norm = nn.LayerNorm(2 * hidden_dim, eps=1e-5)
 
@@ -130,7 +159,7 @@ class QueryAwareEncoder(nn.Module):
         residual = video_feat
         for block in self.blocks:
             residual = block(residual, word_feat, generator)
-        return self.norm(residual)
+        return layer_norm(self.norm, residual, self.dtype)
 
     def block0_rnn(self, video_feat: torch.Tensor) -> torch.Tensor:
         """The query-independent block-0 recurrence of resident [V, T, D]
@@ -147,7 +176,7 @@ class QueryAwareEncoder(nn.Module):
         residual = self.blocks[0].apply_gate(rnn0, word_feat, video_proj)
         for block in self.blocks[1:]:
             residual = block(residual, word_feat)
-        return self.norm(residual)
+        return layer_norm(self.norm, residual, self.dtype)
 
     def shared_video_from_rnn0(self, rnn0: torch.Tensor,
                                word_feat: torch.Tensor) -> torch.Tensor:
@@ -156,7 +185,7 @@ class QueryAwareEncoder(nn.Module):
         the recurrence and projection are expanded over Q, not copied;
         block 0's gate writes the [Q, T, 2H] product once."""
         Q = word_feat.shape[0]
-        video_proj = self.blocks[0].attention.W_a(rnn0)
+        video_proj = self.blocks[0].attention.project_video(rnn0)
         return self.finish_from_rnn0(rnn0.expand(Q, -1, -1), word_feat,
                                      video_proj.expand(Q, -1, -1))
 
@@ -194,30 +223,38 @@ def _finalize(start_logits: torch.Tensor, end_logits: torch.Tensor,
 class MLPPredictor(nn.Module):
     """Two tanh-MLP heads over the fused features (the default predictor)."""
 
-    def __init__(self, in_dim: int, hidden_dim: int):
+    def __init__(self, in_dim: int, hidden_dim: int,
+                 dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.start_mlp_1 = nn.Linear(in_dim, hidden_dim)
         self.start_mlp_2 = nn.Linear(hidden_dim, 1)
         self.end_mlp_1 = nn.Linear(in_dim, hidden_dim)
         self.end_mlp_2 = nn.Linear(hidden_dim, 1)
 
+    def _head(self, first: nn.Linear, second: nn.Linear,
+              feat: torch.Tensor) -> torch.Tensor:
+        hidden = torch.tanh(linear(first, feat, self.dtype))
+        return linear(second, hidden, self.dtype)[..., 0]
+
     def forward(self, feat: torch.Tensor,
                 v_mask: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        s = self.start_mlp_2(torch.tanh(self.start_mlp_1(feat)))[..., 0]
-        e = self.end_mlp_2(torch.tanh(self.end_mlp_1(feat)))[..., 0]
-        return _finalize(s, e, v_mask)
+        return _finalize(self._head(self.start_mlp_1, self.start_mlp_2, feat),
+                         self._head(self.end_mlp_1, self.end_mlp_2, feat),
+                         v_mask)
 
 
 class SpanPredictorBoundary(nn.Module):
     """Name-dispatching holder (keys ``span_predictor.predictor.*``)."""
 
-    def __init__(self, predictor_name: str, in_dim: int, mlp_hidden_dim: int):
+    def __init__(self, predictor_name: str, in_dim: int, mlp_hidden_dim: int,
+                 dtype: torch.dtype = F32):
         super().__init__()
         if predictor_name not in ('mlp', 'a'):
             raise NotImplementedError(f'span predictor {predictor_name!r} is '
                                       'not ported yet (only "mlp")')
-        self.predictor = MLPPredictor(in_dim, mlp_hidden_dim)
+        self.predictor = MLPPredictor(in_dim, mlp_hidden_dim, dtype)
 
     def forward(self, feat: torch.Tensor,
                 v_mask: Optional[torch.Tensor] = None
@@ -233,8 +270,10 @@ class VideoTextSemanticMatch(nn.Module):
     logit (the raw ``predict_2`` output, no sigmoid)."""
 
     def __init__(self, video_dim: int, sent_dim: int, temporal_name: str,
-                 predict_hidden: int, predict_activation: str):
+                 predict_hidden: int, predict_activation: str,
+                 dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         if temporal_name.lower() != 'none':
             raise NotImplementedError(f'CSMM temporal {temporal_name!r} is '
                                       'not ported yet (only "none")')
@@ -250,7 +289,9 @@ class VideoTextSemanticMatch(nn.Module):
         q = (query_feat[:, None, :] if query_feat.dim() == 2 else query_feat)
         cross_feat = torch.cat(
             [video_feat, q.expand(B, T, query_feat.shape[-1])], dim=-1)
-        return self.predict['predict'](cross_feat)[..., 0], cross_feat
+        first, act, second = self.predict['predict']
+        hidden = act(linear(first, cross_feat, self.dtype))
+        return linear(second, hidden, self.dtype)[..., 0], cross_feat
 
 
 class MomentPoolingTOD(nn.Module):
@@ -260,8 +301,10 @@ class MomentPoolingTOD(nn.Module):
     2-way original-vs-pseudo classifier. ``dropout`` is the reference's
     hard-coded 0.5 unless a config's ``disc_dropout`` says otherwise."""
 
-    def __init__(self, visual_dim: int, dropout: float = 0.5):
+    def __init__(self, visual_dim: int, dropout: float = 0.5,
+                 dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.dropout = dropout
         self.foreback_context = nn.Sequential(
             nn.Linear(2 * visual_dim, visual_dim))
@@ -281,8 +324,10 @@ class MomentPoolingTOD(nn.Module):
         fore = self.average_mask(feat, fore_mask)
         back = self.average_mask(feat, back_mask)
         foreback = self.foreback_context[0]
-        fore_feat = torch.relu(foreback(torch.cat([fore, target], dim=-1)))
-        back_feat = torch.relu(foreback(torch.cat([target, back], dim=-1)))
+        fore_feat = torch.relu(linear(foreback, torch.cat([fore, target], -1),
+                                      self.dtype))
+        back_feat = torch.relu(linear(foreback, torch.cat([target, back], -1),
+                                      self.dtype))
         concat = torch.cat([target, fore_feat, back_feat], dim=-1)
         concat = dropout(concat, self.dropout, self.training, generator)
-        return self.fc_classifier_domain_video[0](concat)
+        return linear(self.fc_classifier_domain_video[0], concat, self.dtype)

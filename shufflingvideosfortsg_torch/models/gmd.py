@@ -8,7 +8,9 @@ as one [2B] batch. Dropout follows ``self.training``, with masks from the
 generator a forward is given. Submodules carry the
 reference torch names, so ``state_dict()`` keys equal the keys that
 ``utils/torch_interop.convert_to_reference_state_dict`` writes and a
-reference ``.ckp`` loads strictly.
+reference ``.ckp`` loads strictly. ``dtype`` is the compute dtype of
+every submodule (bf16 at ``precision: bf16``); the weights stay f32 and
+the start/end probabilities are f32 at either.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ class GMD(nn.Module):
                  video_if_mask: bool = False,
                  m_temp: str = 'none', m_pred_hidden: int = 1024,
                  m_pred_activ: str = 'relu', dropout: float = 0.5,
-                 disc_dropout: float = 0.5, pseudo_ground: bool = False):
+                 disc_dropout: float = 0.5, pseudo_ground: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if video_encoder_name.lower() not in ('query_aware_encoder', 'qae',
                                               'qave'):
@@ -46,17 +49,18 @@ class GMD(nn.Module):
         self.pseudo_ground = pseudo_ground
         sent_dim = 2 * sent_hidden
         visual_dim = 2 * video_hidden
+        self.dtype = dtype
         self.sentence_encoder = SentenceRNNEncoder(word_dim, sent_hidden,
-                                                   sent_layers, dropout)
+                                                   sent_layers, dropout, dtype)
         self.video_encoder = QueryAwareEncoder(
             video_feature_dim, video_hidden, video_layers, nblocks, sent_dim,
-            dropout)
+            dropout, dtype=dtype)
         self.span_predictor = SpanPredictorBoundary(
             predictor_name, cmi_dim(cross_name, visual_dim, sent_dim),
-            mlp_hidden_dim)
+            mlp_hidden_dim, dtype)
         self.csmm = VideoTextSemanticMatch(visual_dim, sent_dim, m_temp,
-                                           m_pred_hidden, m_pred_activ)
-        self.tod = MomentPoolingTOD(visual_dim, disc_dropout)
+                                           m_pred_hidden, m_pred_activ, dtype)
+        self.tod = MomentPoolingTOD(visual_dim, disc_dropout, dtype)
 
     def forward(self, query_feat: torch.Tensor, query_mask: torch.Tensor,
                 ori_video_feat: torch.Tensor, ori_video_mask: torch.Tensor,

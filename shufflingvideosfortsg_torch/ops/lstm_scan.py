@@ -59,10 +59,18 @@ FLAT, STACKED = 0, 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check_inputs(xw_flat: Tensor, w_hh: Tensor) -> Tuple[int, int, int]:
-    if xw_flat.dtype != torch.float32 or w_hh.dtype != torch.float32:
-        raise TypeError(f'lstm_recurrence takes float32 only, got '
-                        f'{xw_flat.dtype} and {w_hh.dtype}')
+# K1 takes xw and w_hh both f32 or both bf16; K3 and K4 take f32
+_F32 = (torch.float32,)
+_K1_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_inputs(xw_flat: Tensor, w_hh: Tensor,
+                  dtypes: Tuple[torch.dtype, ...] = _F32
+                  ) -> Tuple[int, int, int]:
+    if xw_flat.dtype not in dtypes or w_hh.dtype != xw_flat.dtype:
+        raise TypeError(f'xw_flat and w_hh must both be one of {dtypes} '
+                        '(K1 takes f32 or bf16, the training kernels K3 '
+                        f'and K4 f32), got {xw_flat.dtype} and {w_hh.dtype}')
     if xw_flat.dim() != 3 or xw_flat.shape[-1] % 8:
         raise ValueError(f'xw_flat must be [T, B, 8H], got {tuple(xw_flat.shape)}')
     T, B, H8 = xw_flat.shape
@@ -199,7 +207,7 @@ def _launch_forward(name: str, xw: Tensor, w_hh: Tensor, layout: int,
     K3 and K6b carry the c_seq residual, K1 and K6a do not. Returns (out,
     c_seq or None, h_T, c_T)."""
     if layout == FLAT:
-        T, B, H = _check_inputs(xw, w_hh)
+        T, B, H = _check_inputs(xw, w_hh, _K1_DTYPES)
         out_shape = (T, B, 2 * H)
     else:
         T, B, H = _check_stacked(xw, w_hh)
@@ -449,25 +457,34 @@ def lstm_recurrence_train_plain(xw_flat: Tensor, w_hh: Tensor
 
 def lstm_recurrence_plain(xw_flat: Tensor, w_hh: Tensor
                           ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Same contract as :func:`lstm_recurrence`, as PyTorch operations."""
-    out, _, h_T, c_T = lstm_recurrence_train_plain(xw_flat, w_hh)
-    return out, h_T, c_T
+    """Same contract as :func:`lstm_recurrence`, as PyTorch operations:
+    the stacked loop (:func:`_stacked_forward_plain`, the rounding points
+    of the JAX bodies) over the flat layout's forward half and its
+    time-reversed backward half."""
+    T, B, H = _check_inputs(xw_flat, w_hh, _K1_DTYPES)
+    H4 = 4 * H
+    xw = torch.stack([xw_flat[..., :H4], xw_flat.flip(0)[..., H4:]], dim=1)
+    out, _, h_T, c_T = _stacked_forward_plain(xw, w_hh, gates_bf16=False)
+    return torch.cat([out[:, 0], out.flip(0)[:, 1]], dim=-1), h_T, c_T
 
 
 def lstm_recurrence(xw_flat: Tensor, w_hh: Tensor
                     ) -> Tuple[Tensor, Tensor, Tensor]:
     """Run both directions of one BiLSTM layer.
 
-    xw_flat: [T, B, 8H] f32; row t is [fwd projection(t) | bwd
+    xw_flat: [T, B, 8H]; row t is [fwd projection(t) | bwd
     projection(t)] with biases added, and the backward half is NOT
-    time-reversed. w_hh: [2, H, 4H] f32, gate order i, f, g, o. Zero
-    initial state. Returns (out [T, B, 2H] in natural time order, h_T
-    [2, B, H], c_T [2, B, H]), all f32.
+    time-reversed. w_hh: [2, H, 4H], gate order i, f, g, o. Both f32, or
+    both bf16 (``precision: bf16``): then h, held in f32, is rounded to
+    bf16 for the product, which sums in f32, and the gates are taken in
+    f32 (``ops/pallas/lstm_scan.py:223-236``). Zero initial state. Returns
+    (out [T, B, 2H] in natural time order, in xw's dtype; h_T, c_T
+    [2, B, H] f32).
 
     When autograd needs a gradient of either input, the call goes through
-    :class:`LSTMRecurrence` (K3 forward, K4 backward). Otherwise CPU
-    tensors take :func:`lstm_recurrence_plain` and CUDA tensors launch K1
-    (``csrc/lstm_scan.cu``) or raise: it takes contiguous f32 inputs on one
+    :class:`LSTMRecurrence` (K3 forward, K4 backward; f32 only). Otherwise
+    CPU tensors take :func:`lstm_recurrence_plain` and CUDA tensors launch
+    K1 (``csrc/lstm_scan.cu``) or raise: it takes contiguous inputs on one
     card, any T >= 1, H a multiple of 8 (a cluster's 8 blocks take H/8
     units each) and any B, in one launch: the batch's row slices go to
     clusters that run independently.
@@ -475,7 +492,7 @@ def lstm_recurrence(xw_flat: Tensor, w_hh: Tensor
     if torch.is_grad_enabled() and (xw_flat.requires_grad
                                     or w_hh.requires_grad):
         return LSTMRecurrence.apply(xw_flat, w_hh)
-    _check_inputs(xw_flat, w_hh)
+    _check_inputs(xw_flat, w_hh, _K1_DTYPES)
     if _on_cpu(xw_flat, w_hh):
         return lstm_recurrence_plain(xw_flat, w_hh)
     out, _, h_T, c_T = _launch_forward('lstm_recurrence', xw_flat, w_hh,

@@ -8,7 +8,12 @@ strictly; the module does not use ``nn.LSTM``. Per layer, the input
 projection of both directions is one [T*B, D] @ [D, 8H] product into the
 flat [T, B, 8H] layout, and the recurrence is
 :func:`~shufflingvideosfortsg_torch.ops.lstm_scan.lstm_recurrence` (K1
-without gradients, K3 and K4 with them).
+without gradients, K3 and K4 with them). At a ``dtype`` of bf16 (JAX
+``ops/rnn.py:133,201-225``) the input is cast to bf16, the projection is
+:func:`~shufflingvideosfortsg_torch.ops.dense.dense` of the f32 weights
+and the f32 sum of the two biases, K1 takes bf16 xw and W_hh (its h and
+c stay f32) and gives bf16 outputs, and the final states are cast to
+bf16.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from .dense import dense
 from .lstm_scan import lstm_recurrence
 
 _DIRECTIONS = ('', '_reverse')
@@ -45,16 +51,19 @@ class BiLSTM(nn.Module):
     layer-major and forward before backward, so ``hn[-2], hn[-1]`` are the
     last layer's final forward and backward states. Dropout applies to
     each layer's output except the last, in training only, with masks
-    from the ``generator`` given to :meth:`forward`.
+    from the ``generator`` given to :meth:`forward`. ``dtype`` is the
+    compute dtype (f32 or bf16); the parameters are f32.
     """
 
     def __init__(self, input_size: int, hidden_size: int,
-                 num_layers: int = 1, dropout: float = 0.0):
+                 num_layers: int = 1, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.input_size = input_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.dropout = dropout
+        self.dtype = dtype
         H = hidden_size
         for k in range(num_layers):
             d_in = input_size if k == 0 else 2 * H
@@ -87,18 +96,18 @@ class BiLSTM(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         B, T, _ = x.shape
-        H = self.hidden_size
+        H, dt = self.hidden_size, self.dtype
         hn, cn = [], []
-        inputs = x
+        inputs = x.to(dt)
         for k in range(self.num_layers):
             w_ih, b, w_hh = self._layer_weights(k)
             # [B, T, D] -> [T*B, D] (a view when the input is the previous
             # layer's [T, B, 2H] output seen as [B, T, 2H])
             flat_in = inputs.transpose(0, 1).reshape(T * B, inputs.shape[-1])
-            xw = torch.addmm(b, flat_in, w_ih.t()).view(T, B, 8 * H)
-            out, h_T, c_T = lstm_recurrence(xw, w_hh)
-            hn += [h_T[0], h_T[1]]
-            cn += [c_T[0], c_T[1]]
+            xw = dense(flat_in, w_ih, b, dt).view(T, B, 8 * H)
+            out, h_T, c_T = lstm_recurrence(xw, w_hh.to(dt))
+            hn += [h_T[0].to(dt), h_T[1].to(dt)]
+            cn += [c_T[0].to(dt), c_T[1].to(dt)]
             layer_out = out.transpose(0, 1)
             if k + 1 < self.num_layers:
                 layer_out = dropout(layer_out, self.dropout, self.training,

@@ -35,11 +35,18 @@ _BWD_COLS = (256, 128, 64, 32)
 _BWD_ROWS = (32, 16, 8, 4)
 
 
+# the kernel's dtype codes (csrc/common.cuh: kF32, kBF16); K5 takes f32
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_F32 = (torch.float32,)
+
+
 def _check_inputs(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
-                  sent_feat: Tensor) -> Tuple[int, int, int, int, int]:
+                  sent_feat: Tensor, dtypes=tuple(_DTYPE_CODES)
+                  ) -> Tuple[int, int, int, int, int]:
     args = (video_proj, sent_proj, w, sent_feat)
-    if any(a.dtype != torch.float32 for a in args):
-        raise TypeError('scdm_attention_fused takes float32 only, got '
+    if video_proj.dtype not in dtypes or any(a.dtype != video_proj.dtype
+                                             for a in args):
+        raise TypeError(f'the four inputs must share one of {dtypes}, got '
                         f'{[a.dtype for a in args]}')
     if video_proj.dim() != 3 or sent_proj.dim() != 3 or sent_feat.dim() != 3:
         raise ValueError('video_proj, sent_proj and sent_feat must be 3-D')
@@ -79,12 +86,16 @@ def scdm_attention_plain(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
                          sent_feat: Tensor) -> Tensor:
     """The attention as PyTorch operations (``ops/attention.py:21-44``):
     materialises the [B, T, N, Dh] tanh activation. Same contract as
-    :func:`scdm_attention_fused`."""
+    :func:`scdm_attention_fused`: in bf16 the sum and the tanh are bf16
+    operations (each rounded), the logits and the context sums of exact
+    f32 products taken in f32 and rounded to bf16, the softmax in f32 and
+    P rounded to bf16 (the identity casts in f32)."""
     _check_inputs(video_proj, sent_proj, w, sent_feat)
+    dt, f32 = video_proj.dtype, torch.float32
     act = torch.tanh(video_proj[:, :, None, :] + sent_proj[:, None, :, :])
-    logits = torch.einsum('btnh,h->btn', act, w)
-    P = torch.softmax(logits, dim=-1)
-    return torch.einsum('btn,bnd->btd', P, sent_feat)
+    logits = torch.einsum('btnh,h->btn', act.to(f32), w.to(f32)).to(dt)
+    P = torch.softmax(logits.to(f32), dim=-1).to(dt)
+    return torch.einsum('btn,bnd->btd', P.to(f32), sent_feat.to(f32)).to(dt)
 
 
 class ScdmPlan(NamedTuple):
@@ -117,11 +128,12 @@ def _scdm_plan(B: int, T: int, N: int, sms: int,
     return ScdmPlan(rows, -(-T // rows) * B, smem[rows])
 
 
-def _scdm_smem_bytes(rows: int, N: int) -> int:
-    """Shared memory of a forward block of ``rows`` rows at N words, as
-    ``csrc/scdm.cu`` lays it out (``svtsg_scdm_smem_bytes``); -1 where the
-    kernel takes no tile of ``rows`` rows."""
-    return _kernels.library().svtsg_scdm_smem_bytes(rows, N)
+def _scdm_smem_bytes(rows: int, N: int, elem_bytes: int = 4) -> int:
+    """Shared memory of a forward block of ``rows`` rows at N words with
+    inputs of ``elem_bytes`` bytes (f32 4, bf16 2), as ``csrc/scdm.cu``
+    lays it out (``svtsg_scdm_smem_bytes``); -1 where the kernel takes no
+    tile of ``rows`` rows."""
+    return _kernels.library().svtsg_scdm_smem_bytes(rows, N, elem_bytes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,28 +142,33 @@ def _sm_count(device: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _scdm_rows(B: int, T: int, N: int, device: int) -> int:
-    """The rows a block of the forward launch at (B, T, N) on the card
-    ``device`` takes."""
+def _scdm_rows(B: int, T: int, N: int, device: int,
+               elem_bytes: int = 4) -> int:
+    """The rows a block of the forward launch at (B, T, N) with inputs of
+    ``elem_bytes`` bytes on the card ``device`` takes."""
     return _scdm_plan(B, T, N, _sm_count(device),
-                      lambda rows: _scdm_smem_bytes(rows, N)).rows
+                      lambda rows: _scdm_smem_bytes(rows, N, elem_bytes)).rows
 
 
 def _launch_forward(args, want_p: bool) -> Tuple[Tensor, Optional[Tensor]]:
     """One launch of ``scdm_fwd_kernel`` on CUDA tensors over the planned
-    tiles of rows; returns (C, P or None). P [B, T, N] is allocated and
-    written only when asked for."""
+    tiles of rows; returns (C in the inputs' dtype, P or None). P
+    [B, T, N] f32 is allocated and written only when asked for, in f32
+    only (K5's forward)."""
     B, T, N, Dh, Ds = _check_inputs(*args)
+    dt = args[0].dtype
+    if want_p and dt != torch.float32:
+        raise TypeError(f'scdm_attention_fused keeps P in f32 only, got {dt}')
     dev = _cuda_device('scdm_attention_fused', args)
     index = _device_index(dev)
-    rows = _scdm_rows(B, T, N, index)
-    out = torch.empty(B, T, Ds, device=dev, dtype=torch.float32)
+    rows = _scdm_rows(B, T, N, index, dt.itemsize)
+    out = torch.empty(B, T, Ds, device=dev, dtype=dt)
     P = (torch.empty(B, T, N, device=dev, dtype=torch.float32)
          if want_p else None)
     err = _kernels.library().svtsg_scdm_attention(
         *(a.data_ptr() for a in args), out.data_ptr(),
-        None if P is None else P.data_ptr(), B, T, N, Dh, Ds, rows, index,
-        _stream(dev))
+        None if P is None else P.data_ptr(), B, T, N, Dh, Ds, rows,
+        _DTYPE_CODES[dt], index, _stream(dev))
     _kernels.check(err, 'scdm_attention_fused')
     scdm_attention_fused.launches += 1
     return out, P
@@ -162,19 +179,20 @@ def scdm_attention_fused(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     """Per-frame text context C [B, T, Ds].
 
     video_proj: [B, T, Dh] (= W_a v + b_a); sent_proj: [B, N, Dh]
-    (= W_s s); w: [Dh]; sent_feat: [B, N, Ds]; all f32. The softmax runs in
-    f32 over all N word slots, padded slots included (the reference's
-    quirk).
+    (= W_s s); w: [Dh]; sent_feat: [B, N, Ds]; all f32 or all bf16 (then
+    C is bf16, with the rounding points of ``ops/attention.py:20-44`` at
+    bf16: :func:`scdm_attention_plain`). The softmax runs in f32 over all
+    N word slots, padded slots included (the reference's quirk).
 
     CPU tensors take :func:`scdm_attention_plain`. CUDA tensors launch
     ``scdm_fwd_kernel`` (``csrc/scdm.cu``) once or raise: it takes
-    contiguous f32 inputs on one card, at any N, Dh and Ds. A block takes a
-    tile of rows t of one batch row (:func:`_scdm_plan`), streams k
-    through shared memory with each thread keeping 2 rows x 4 words of
-    logits, and runs the softmax and the context product from shared
-    memory; the sums run in a fixed order, so two runs give equal bits. It
-    has no backward: call it with gradients off, or call
-    :func:`scdm_attention_fused_trainable`.
+    contiguous inputs of one dtype on one card, at any N, Dh and Ds. A
+    block takes a tile of rows t of one batch row (:func:`_scdm_plan`),
+    streams k through shared memory with each thread keeping 2 rows x 4
+    words of logits, and runs the softmax and the context product from
+    shared memory; the sums run in a fixed order, so two runs give equal
+    bits. It has no backward: call it with gradients off, or call
+    :func:`scdm_attention_fused_trainable` (f32).
     """
     args = (video_proj, sent_proj, w, sent_feat)
     _check_inputs(*args)
@@ -334,6 +352,9 @@ def scdm_attention_bwd_core(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     card, any shape), with the blocks :func:`_scdm_bwd_plan` picks. The
     partial sums over spans of t and batch rows are added in a fixed order,
     so two runs give equal bits."""
+    if any(a.dtype != torch.float32 for a in (video_proj, sent_proj, w)):
+        raise TypeError('scdm_attention_bwd_core takes f32 only, got '
+                        f'{[a.dtype for a in (video_proj, sent_proj, w)]}')
     B, T, Dh = video_proj.shape
     N = sent_proj.shape[1]
     for name, t in (('P', P), ('dP', dP)):
@@ -381,7 +402,7 @@ def scdm_attention_bwd(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     the whole backward to XLA), then ``scdm_bwd_kernel`` for the rest, or
     raise. ``scdm_attention_fused_trainable.launches`` counts the kernel's
     launches."""
-    B, T, _, _, Ds = _check_inputs(video_proj, sent_proj, w, sent_feat)
+    B, T, _, _, Ds = _check_inputs(video_proj, sent_proj, w, sent_feat, _F32)
     if tuple(grad_out.shape) != (B, T, Ds) or grad_out.dtype != torch.float32:
         raise ValueError(f'grad_out must be f32 [{B}, {T}, {Ds}], got '
                          f'{grad_out.dtype} {list(grad_out.shape)}')
@@ -409,7 +430,7 @@ class _ScdmAttentionTrainable(torch.autograd.Function):
     @staticmethod
     def forward(ctx, video_proj, sent_proj, w, sent_feat):
         args = (video_proj, sent_proj, w, sent_feat)
-        _check_inputs(*args)
+        _check_inputs(*args, _F32)
         if all(a.device.type == 'cpu' for a in args):
             out, P = scdm_attention_plain(*args), None
         else:

@@ -2,6 +2,7 @@
 
     python -m shufflingvideosfortsg_torch.profile_eval [--batch 32] [--iters 20]
     python -m shufflingvideosfortsg_torch.profile_eval --banked [--group 8]
+    ... [--precision bf16]
 
 Builds GMD at the width of ``cfgs/charades_cd_i3d.yml`` from seeded random
 weights and times the evaluation step (``eval_forward`` plus the span
@@ -16,7 +17,12 @@ epoch of ``--group`` x 8 index batches of ``--batch`` three ways: eager,
 batch by batch with the assembly on the device; and the graphed epoch of
 ``cli._banked_eval_epoch`` at G=1 and at G=``--group``. For each: wall ms
 and device-busy ms per batch, sentences/s, and the device's busy share of
-an epoch under ``torch.profiler``.
+an epoch under ``torch.profiler``, with the device time of the matrix
+products (cuBLAS), K1 and K2 a batch.
+
+``--precision`` (f32 by default, or bf16) is the model's compute dtype,
+printed on every line; bf16 products sum in f32
+(``utils/device.exact_bf16_products``).
 
 Needs a CUDA device; prints one JSON line last.
 """
@@ -42,6 +48,7 @@ from .data import device_bank
 from .data.featpack import PackedFeatureSource
 from .models.build import build_model
 from .train.steps import make_gmd_test_step, to_device
+from .utils.device import exact_bf16_products
 
 
 def _batch(params, B: int, device, seed: int = 0):
@@ -88,9 +95,28 @@ def card_line() -> str:
                           text=True, timeout=60, check=True).stdout.strip()
 
 
-def print_kernels(kernels, n: int, busy_ms: float, top: int = 15) -> None:
+# device kernels by group: cuBLAS's matrix products (its f32 kernels are
+# sm80_xmma_gemm_*, its bf16 ones on an H100 nvjet_*), K1, K2
+GROUPS = (('gemm', ('gemm', 'cutlass', 'xmma', 'cublas', 'nvjet')),
+          ('K1', ('lstm_fwd_kernel',)), ('K2', ('scdm_fwd_kernel',)))
+
+
+def grouped_ms(kernels, n: int) -> dict:
+    """Device ms a step of each group of :data:`GROUPS` and of the rest."""
+    out = {name: 0.0 for name, _ in GROUPS}
+    out['other'] = 0.0
+    for key, us in kernels.items():
+        name = next((g for g, keys in GROUPS
+                     if any(k in key.lower() for k in keys)), 'other')
+        out[name] += us / 1e3 / n
+    return out
+
+
+def print_kernels(kernels, n: int, busy_ms: float, top: int = 15,
+                  tag: str = '') -> None:
+    """The ``top`` kernels by device time, each line led by ``tag``."""
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
-        print(f'  {us / 1e3 / n:9.4f} ms/step '
+        print(f'  {tag}{us / 1e3 / n:9.4f} ms/step '
               f'{100 * us / 1e3 / busy_ms:5.1f}%  {name[:100]}')
 
 
@@ -145,8 +171,8 @@ def banked(model, params, args, dev) -> dict:
         bank = device_bank.DeviceFeatureBank(pack, vocab, dev)
         upload_s = time.perf_counter() - t0
         pack.close()
-    print(f'bank: {BANK_VIDEOS} videos, {bank.nbytes} bytes resident, '
-          f'uploaded in {upload_s:.3f} s')
+    print(f'bank [{args.precision}]: {BANK_VIDEOS} videos, {bank.nbytes} '
+          f'bytes resident, uploaded in {upload_s:.3f} s')
     step = make_gmd_test_step(model, assembler=bank.assemble)
     batches = index_batches(params, BANK_VIDEOS, args.batch,
                             args.group * BANK_TICKS)
@@ -170,16 +196,20 @@ def banked(model, params, args, dev) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / (args.iters * n)
         kernels, win_ms, busy_ms = profile_window(fn, 1)
+        groups = grouped_ms(kernels, n)
         out[name] = {'wall_ms_per_batch': wall,
                      'sentences_per_s': args.batch / wall * 1e3,
                      'device_ms_per_batch': busy_ms / n,
                      'busy_share': busy_ms / win_ms,
-                     'kernels_seen': len(kernels)}
-        print(f'{name}: {wall:.4f} ms a batch of {args.batch} wall '
-              f'({args.batch / wall * 1e3:.1f} sentences/s), device busy '
-              f'{busy_ms / n:.4f} ms a batch, {100 * busy_ms / win_ms:.1f}% '
-              f'of a profiled epoch of {n} batches ({win_ms:.3f} ms)')
-        print_kernels(kernels, n, busy_ms, top=6)
+                     'kernels_seen': len(kernels),
+                     'group_ms_per_batch': groups}
+        print(f'{name} [{args.precision}]: {wall:.4f} ms a batch of '
+              f'{args.batch} wall ({args.batch / wall * 1e3:.1f} '
+              f'sentences/s), device busy {busy_ms / n:.4f} ms a batch, '
+              f'{100 * busy_ms / win_ms:.1f}% of a profiled epoch of {n} '
+              f'batches ({win_ms:.3f} ms); ms a batch: '
+              + ', '.join(f'{k} {v:.4f}' for k, v in groups.items()))
+        print_kernels(kernels, n, busy_ms, top=6, tag=f'[{args.precision}] ')
     return {'bank_bytes': bank.nbytes, 'upload_s': upload_s,
             'batches': n, 'group': args.group, 'modes': out}
 
@@ -190,21 +220,25 @@ def main() -> None:
     ap.add_argument('--iters', type=int, default=20)
     ap.add_argument('--banked', action='store_true')
     ap.add_argument('--group', type=int, default=8)
+    ap.add_argument('--precision', choices=('f32', 'bf16'), default='f32')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_eval needs a CUDA device')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    exact_bf16_products()
     dev = torch.device('cuda', 0)
-    params = load_config('charades_cd_i3d.yml')
+    params = dict(load_config('charades_cd_i3d.yml'),
+                  precision=args.precision)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = build_model(params, 'gmd', device=dev).eval()
     if args.banked:
         smi = card_line()
-        print(f'card: {smi}')
+        print(f'card: {smi} [{args.precision}]')
         fields = banked(model, params, args, dev)
-        print(json.dumps({'card': smi, 'batch': args.batch, **fields}))
+        print(json.dumps({'card': smi, 'precision': args.precision,
+                          'batch': args.batch, **fields}))
         return
     step = make_gmd_test_step(model)
     batch = _batch(params, args.batch, dev)
@@ -223,15 +257,17 @@ def main() -> None:
     n_prof = 5
     kernels, wall_ms, busy_ms = profile_window(lambda: step(batch), n_prof)
     smi = card_line()
-    print(f'card: {smi}')
-    print(f'step: {ms:.4f} ms per batch of {args.batch} '
+    print(f'card: {smi} [{args.precision}]')
+    print(f'step [{args.precision}]: {ms:.4f} ms per batch of {args.batch} '
           f'({args.batch / ms * 1e3:.1f} sentences/s, CUDA events, '
           f'{args.iters} iterations)')
-    print(f'profile window: {n_prof} steps, wall {wall_ms:.3f} ms, device '
-          f'busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)')
-    print_kernels(kernels, n_prof, busy_ms)
+    print(f'profile window [{args.precision}]: {n_prof} steps, wall '
+          f'{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms '
+          f'({100 * busy_ms / wall_ms:.1f}%)')
+    print_kernels(kernels, n_prof, busy_ms, tag=f'[{args.precision}] ')
     print(json.dumps({
-        'card': smi, 'batch': args.batch, 'step_ms': ms,
+        'card': smi, 'precision': args.precision, 'batch': args.batch,
+        'step_ms': ms, 'group_ms_per_step': grouped_ms(kernels, n_prof),
         'window_wall_ms': wall_ms, 'window_device_busy_ms': busy_ms,
         'kernels_ms_per_step': {k[:100]: v / 1e3 / n_prof
                                 for k, v in kernels.items()}}))

@@ -1,11 +1,13 @@
 """Where a served query batch spends its time on the card.
 
     python -m shufflingvideosfortsg_torch.profile_serve [--batch 512]
+        [--precision bf16]
 
 Builds ``serving.MultiQueryGrounder`` at the width of
 ``cfgs/charades_cd_i3d.yml`` (I3D D=1024, N=15 words, H=256 BiLSTMs, 2
-QAVE blocks, f32) from seeded random weights and serves BATCHES (4)
-batches of ``--batch`` (512) queries in each mode:
+QAVE blocks) in ``--precision`` (f32 by default, or bf16: the compute
+dtype, printed on every line) from seeded random weights and serves
+BATCHES (4) batches of ``--batch`` (512) queries in each mode:
 
 - ``video_f32``, ``video_f16``, ``video_tokens``, ``video_topk``: one
   resident video of VIDEO_LEN (1024) clips, queries as f32 sentence
@@ -15,14 +17,15 @@ batches of ``--batch`` (512) queries in each mode:
 - ``corpus_raw``, ``corpus_int8``: a pack of CORPUS_VIDEOS (6,350, the
   Charades-CD size) f16 videos at T=128 written by
   ``tools/make_synth_pack.py``, set up with ``set_corpus`` in chunks of
-  CORPUS_CHUNK (256) videos, raw f32 or int8, and token-id queries
-  against random videos of it.
+  CORPUS_CHUNK (256) videos, raw (in the compute dtype) or int8, and
+  token-id queries against random videos of it.
 
 For each mode: the seconds of its setup (the block-0 recurrences, waited
 for), wall ms a batch and queries/s (host clock around whole calls, the
 fetch included, after one warm-up call), device ms a batch and the
-device's busy share of one ``torch.profiler`` call, the resident bank's
-bytes, the peak device memory of a call, and K1 and K2 launches a batch.
+device's busy share of one ``torch.profiler`` call with the device time of
+the matrix products, K1 and K2 a batch, the resident bank's bytes, the
+peak device memory of a call, and K1 and K2 launches a batch.
 Needs a CUDA device; prints the card and one JSON line last.
 """
 
@@ -41,7 +44,8 @@ from .data.featpack import PackedFeatureSource
 from .models.build import build_model
 from .ops.lstm_scan import lstm_recurrence
 from .ops.scdm_fused import scdm_attention_fused
-from .profile_eval import card_line, print_kernels, profile_window, write_pack
+from .profile_eval import (card_line, grouped_ms, print_kernels,
+                           profile_window, write_pack)
 from .serving import MultiQueryGrounder, bank_nbytes
 
 VOCAB_WORDS = 8000  # a GloVe vocabulary of the datasets' order
@@ -62,8 +66,9 @@ def _timed(fn) -> float:
 
 
 def measure(name: str, serve, n_queries: int, batch: int, setup_s: float,
-            bank: int) -> dict:
-    """One mode: serve() grounds n_queries in batches of ``batch``."""
+            bank: int, tag: str) -> dict:
+    """One mode: serve() grounds n_queries in batches of ``batch``;
+    ``tag`` (the compute dtype) leads every line."""
     n = -(-n_queries // batch)
     serve()  # warm-up: kernels, plans, the allocator
     for fn in (lstm_recurrence, scdm_attention_fused):
@@ -74,31 +79,36 @@ def measure(name: str, serve, n_queries: int, batch: int, setup_s: float,
                 'K2': scdm_attention_fused.launches / n}
     peak = torch.cuda.max_memory_allocated()
     kernels, win_ms, busy_ms = profile_window(serve, 1)
+    groups = grouped_ms(kernels, n)
     out = {'setup_s': setup_s, 'wall_ms_per_batch': wall,
            'queries_per_s': batch / wall * 1e3,
            'device_ms_per_batch': busy_ms / n, 'busy_share': busy_ms / win_ms,
-           'bank_bytes': bank, 'peak_bytes': peak,
-           'launches_per_batch': launches}
-    print(f'{name}: setup {setup_s:.3f} s; {wall:.4f} ms wall a batch of '
-          f'{batch} ({out["queries_per_s"]:.1f} queries/s), device '
+           'group_ms_per_batch': groups, 'bank_bytes': bank,
+           'peak_bytes': peak, 'launches_per_batch': launches}
+    print(f'{name} [{tag}]: setup {setup_s:.3f} s; {wall:.4f} ms wall a '
+          f'batch of {batch} ({out["queries_per_s"]:.1f} queries/s), device '
           f'{busy_ms / n:.4f} ms a batch, busy {100 * busy_ms / win_ms:.1f}% '
-          f'of a profiled call; bank {bank} bytes; peak {peak / 2**30:.3f} '
-          f'GiB; launches a batch {launches}', flush=True)
-    print_kernels(kernels, n, busy_ms, top=8)
+          f'of a profiled call (' + ', '.join(f'{k} {v:.3f}' for k, v in
+                                              groups.items())
+          + f' ms); bank {bank} bytes; peak {peak / 2**30:.3f} GiB; '
+          f'launches a batch {launches}', flush=True)
+    print_kernels(kernels, n, busy_ms, top=8, tag=f'[{tag}] ')
     return out
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--batch', type=int, default=512)
+    ap.add_argument('--precision', choices=('f32', 'bf16'), default='f32')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_serve needs a CUDA device')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    tag = args.precision
     smi = card_line()
-    print(f'card: {smi}', flush=True)
-    params = load_config('charades_cd_i3d.yml')
+    print(f'card: {smi} [{tag}]', flush=True)
+    params = dict(load_config('charades_cd_i3d.yml'), precision=tag)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         state = build_model(params, 'gmd', device='cpu').state_dict()
@@ -126,7 +136,7 @@ def main(argv=None) -> None:
     for name, (ship, fn) in video_modes.items():
         g, setup = grounders[ship]
         out[name] = measure(name, lambda: fn(g), Q, args.batch, setup,
-                            bank_nbytes(g._resident_rnn0))
+                            bank_nbytes(g._resident_rnn0), tag)
     grounders.clear()
     with tempfile.TemporaryDirectory(prefix='svtsg_serve_') as root:
         pack = PackedFeatureSource(write_pack(root, CORPUS_VIDEOS, 128, D))
@@ -140,9 +150,10 @@ def main(argv=None) -> None:
                 pack, chunk_videos=CORPUS_CHUNK, dtype=tier))
             out[f'corpus_{tier}'] = measure(
                 f'corpus_{tier}', lambda: g.ground_tokens(tokens, ids), Q,
-                args.batch, setup, bank_nbytes(g._resident_bank))
+                args.batch, setup, bank_nbytes(g._resident_bank), tag)
         pack.close()
-    print(json.dumps({'card': smi, 'batch': args.batch, 'batches': BATCHES,
+    print(json.dumps({'card': smi, 'precision': tag, 'batch': args.batch,
+                      'batches': BATCHES,
                       'video_len': VIDEO_LEN, 'videos': CORPUS_VIDEOS,
                       'chunk': CORPUS_CHUNK, 'topk': TOPK, 'modes': out}))
 

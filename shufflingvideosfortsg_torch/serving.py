@@ -10,8 +10,15 @@ and the heads. Three residencies:
 - a bank of videos (:meth:`~MultiQueryGrounder.set_videos`), query i
   against bank row ``video_ids[i]``;
 - a whole feature pack (:meth:`~MultiQueryGrounder.set_corpus`), streamed
-  through block 0 in chunks into one preallocated tensor, raw f32 or
-  int8 with per-(video, frame) f32 scales; queries name videos by id.
+  through block 0 in chunks into one preallocated tensor, raw (in the
+  model's dtype) or int8 with per-(video, frame) f32 scales; queries name
+  videos by id.
+
+At ``precision: bf16`` the model runs in bf16 (``models/build.py``): the
+cached recurrences are bf16, so the raw tier holds half the f32 bytes,
+and the int8 tier quantises them in f32 (JAX ``serving.py:258-269``).
+Shipped f16 features and embedded token ids widen to f32 on the device
+and the model casts them, as JAX's serve functions do.
 
 Queries ship as sentence features (f32, or f16 with ``serve_query_dtype:
 f16``, widened on the device) or as token ids against a resident GloVe
@@ -40,7 +47,7 @@ import torch
 
 from .models.build import build_model
 from .ops.span import span_decode, span_topk_nms
-from .utils.device import resolve_device
+from .utils.device import exact_bf16_products, resolve_device
 
 Bank = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 _UNSHARDED = ('one card holds the port: the sharded bank and the '
@@ -49,9 +56,9 @@ _UNSHARDED = ('one card holds the port: the sharded bank and the '
 
 
 def _bank_rows(bank: Bank, video_ids: torch.Tensor) -> torch.Tensor:
-    """Each query's rows [Q, T, 2H] f32 of a resident block-0 bank. The
-    int8 bank, (values [V, T, 2H] int8, scales [V, T] f32), gathers both
-    and dequantises only the gathered rows."""
+    """Each query's rows [Q, T, 2H] of a resident block-0 bank, in its
+    dtype. The int8 bank, (values [V, T, 2H] int8, scales [V, T] f32),
+    gathers both and dequantises only the gathered rows, to f32."""
     if isinstance(bank, tuple):
         q, s = bank
         return (q.index_select(0, video_ids).float()
@@ -60,9 +67,11 @@ def _bank_rows(bank: Bank, video_ids: torch.Tensor) -> torch.Tensor:
 
 
 def _quantize(rnn0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric int8 per (video, frame) over the 2H features: scale =
-    amax / 127 (1/127 for an all-zero frame), values round half to even
-    as ``jnp.round``; the error is at most amax / 254 an element."""
+    """Symmetric int8 per (video, frame) over the 2H features, taken in
+    f32: scale = amax / 127 (1/127 for an all-zero frame), values round
+    half to even as ``jnp.round``; the error is at most amax / 254 an
+    element."""
+    rnn0 = rnn0.float()
     amax = rnn0.abs().amax(dim=-1)
     scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / 127.0
     q = torch.clamp(torch.round(rnn0 / scale[..., None]), -127, 127)
@@ -99,6 +108,8 @@ class MultiQueryGrounder:
         if self.device.type == 'cuda' and self.device.index is None:
             # a thread of its own (the gateway's) sets this card
             self.device = torch.device('cuda', torch.cuda.current_device())
+        if self.device.type == 'cuda':
+            exact_bf16_products()
         model = build_model(params, 'gmd', device='cpu')
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
@@ -223,9 +234,11 @@ class MultiQueryGrounder:
         for serving: its videos go through block 0 ``chunk_videos`` at a
         time (uploaded in the pack's stored dtype, widened on the device)
         and only the [V, T, 2H] recurrences stay, written in place into
-        one tensor allocated up front. ``dtype='int8'`` keeps int8 values
-        and per-(video, frame) f32 scales instead, a quarter of the f32
-        bytes plus the scales, within amax/254 an element. Videos are
+        one tensor allocated up front, in the model's dtype (bf16 at
+        ``precision: bf16``: half the f32 bytes). ``dtype='int8'`` keeps
+        int8 values and per-(video, frame) f32 scales instead, a quarter
+        of the f32 bytes plus the scales, within amax/254 of the model's
+        recurrences an element. Videos are
         then named by id in :meth:`ground_vids`."""
         if shard:
             raise NotImplementedError('set_corpus(shard=True): ' + _UNSHARDED)

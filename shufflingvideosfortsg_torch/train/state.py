@@ -7,7 +7,8 @@ train.py:367-387); here they are those torch optimizers:
 - adam:  ``torch.optim.Adam(eps=1e-6, weight_decay=wd)``, the decay added
   to the gradient before the moments;
 - adamw: ``torch.optim.AdamW(eps=1e-8)``, decoupled decay;
-- sgd:   ``torch.optim.SGD(momentum=params['momentum'])``, L2 decay.
+- sgd:   :class:`SGD`, ``torch.optim.SGD(momentum=params['momentum'])``
+  written in tensor arithmetic, L2 decay.
 
 With ``group_weight`` the decay skips Linear biases and LayerNorm
 parameters (``group_weight_mask``). Gradients are clipped by global norm as
@@ -16,12 +17,14 @@ rate is set before every update from :func:`lr_schedule_fn`, epoch-granular
 (``epoch = step // steps_per_epoch``): 'ms' is MultiStepLR, 'l' the
 reference's LambdaLR whose factor makes the rate lr * (lr - epoch * 1e-6).
 
-On a card Adam and AdamW are built ``capturable``, their rate a 0-d
-tensor on the card that :meth:`TrainState.set_lr` fills, so an update
-reads no number from the host and a CUDA graph can capture it; eager
-steps on the card take the same path, so the two compute the same bits.
-SGD has no capturable form (its update reads a tensor rate on the host),
-and the CPU keeps the optimizers as the reference builds them.
+On a card every optimizer reads its rate from a 0-d tensor on the card
+that :meth:`TrainState.set_lr` fills, so an update reads no number from
+the host and a CUDA graph can capture it; eager steps on the card take
+the same path, so the two compute the same bits. Adam and AdamW are
+built ``capturable``; ``torch.optim.SGD`` has no such form (its update
+passes the rate as ``alpha``, read on the host), so SGD is the port's own
+:class:`SGD`, on the CPU too. The CPU keeps Adam and AdamW as the
+reference builds them.
 """
 
 from __future__ import annotations
@@ -75,12 +78,44 @@ def decay_groups(model: nn.Module, weight_decay: float, grouped: bool
             {'params': no_decay, 'weight_decay': 0.0}]
 
 
+class SGD(torch.optim.Optimizer):
+    """``torch.optim.SGD(lr, momentum, weight_decay)`` (no dampening, no
+    Nesterov) as tensor arithmetic: g = grad + weight_decay * p; with
+    momentum, buf = g at the first step and momentum * buf + g after it,
+    and g = buf; then p -= lr * g. ``lr`` may be a 0-d tensor on the
+    parameters' card, which the update reads there, so a CUDA graph
+    captures a step (the momentum buffers exist from the first step on,
+    which runs eagerly)."""
+
+    def __init__(self, params, lr, momentum: float = 0.0,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, momentum=float(momentum),
+                                      weight_decay=float(weight_decay)))
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            lr, mom, wd = group['lr'], group['momentum'], group['weight_decay']
+            for p in group['params']:
+                if p.grad is None:
+                    continue
+                g = p.grad if wd == 0 else p.grad.add(p, alpha=wd)
+                if mom != 0:
+                    buf = self.state[p].get('momentum_buffer')
+                    if buf is None:
+                        buf = self.state[p]['momentum_buffer'] = g.clone()
+                    else:
+                        buf.mul_(mom).add_(g)
+                    g = buf
+                p.sub_(lr * g)
+
+
 def make_optimizer(model: nn.Module, params: Dict[str, Any]
                    ) -> torch.optim.Optimizer:
     """The reference's optimizer over ``model``'s parameters. Its learning
-    rate is set per update by :class:`TrainState`. Adam and AdamW over
-    parameters on a card are ``capturable``, with the rate a 0-d tensor
-    on the card."""
+    rate is set per update by :class:`TrainState`. Over parameters on a
+    card the rate is a 0-d tensor on the card, and Adam and AdamW are
+    ``capturable``."""
     wd = float(params.get('weight_decay', 0.0))
     groups = decay_groups(model, wd, bool(params.get('group_weight', False)))
     lr = float(params['lr'])
@@ -96,8 +131,8 @@ def make_optimizer(model: nn.Module, params: Dict[str, Any]
         return torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8,
                                  **opts)
     if name == 'sgd':
-        return torch.optim.SGD(groups, lr=lr,
-                               momentum=float(params.get('momentum', 0.8)))
+        return SGD(groups, lr=opts['lr'],
+                   momentum=float(params.get('momentum', 0.8)))
     raise ValueError(f'unknown optimizer: {name}')
 
 
@@ -119,15 +154,14 @@ def clip_by_global_norm(parameters, max_norm: float) -> torch.Tensor:
 class TrainState:
     """The model, its optimizer, the schedule and the update count
     (``TrainState`` of the JAX package; here the parameters live in the
-    model and change in place). ``captures``: whether a CUDA graph can
-    capture :meth:`update` (Adam and AdamW on a card)."""
+    model and change in place). On a card a CUDA graph can capture
+    :meth:`update`."""
 
     def __init__(self, model: nn.Module, params: Dict[str, Any],
                  steps_per_epoch: int):
         self.model = model
         self.step = 0
         self.optimizer = make_optimizer(model, params)
-        self.captures = self.optimizer.defaults.get('capturable', False)
         self.schedule = lr_schedule_fn(params, steps_per_epoch)
         self.clip = (float(params['grad_clip_max'])
                      if params.get('grad_clip') else None)
@@ -146,7 +180,7 @@ class TrainState:
     def update(self) -> None:
         """Clip the gradients now in the parameters' ``.grad`` and take
         the optimizer's step at the rate set last; no host state changes,
-        so with ``captures`` a CUDA graph can capture it."""
+        so on a card a CUDA graph can capture it."""
         if self.clip is not None:
             clip_by_global_norm(self.model.parameters(), self.clip)
         self.optimizer.step()

@@ -15,3 +15,12 @@ def resolve_device(name: str) -> torch.device:
     if device.type not in ('cuda', 'cpu'):
         raise ValueError(f'unsupported device {name!r}')
     return device
+
+
+def exact_bf16_products() -> None:
+    """Have cuBLAS sum every bf16 product in f32 and round once, as the
+    JAX package's products do: its default
+    (``allow_bf16_reduced_precision_reduction``) may add the split-K
+    partial sums of a bf16 product in bf16. A process-wide setting, which
+    the drivers, the grounder and the measurement tools make on a card."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

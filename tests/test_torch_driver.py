@@ -91,7 +91,9 @@ def test_port_driver_refuses_top_k(corpus):
     """``eval_topk`` > 1 is no longer refused (the JAX driver's top-k
     submit is held in tests/test_torch_serving.py): every sentence gets
     its proposals, the first the top-1 span, the rest non-overlapping
-    past the NMS threshold. ``precision: bf16`` is still refused."""
+    past the NMS threshold. ``precision: bf16`` runs the test driver
+    (its submit against the JAX driver's: tests/test_torch_bf16.py) and
+    is refused, by name, in training only."""
     argv, n = corpus
     params = port_cli.parse_params(
         argv + ['--alias', 'test_port_topk', '--device', 'cpu',
@@ -105,7 +107,12 @@ def test_port_driver_refuses_top_k(corpus):
         assert 1 <= len(props) == len(r['scores_topk']) <= 3
         assert props[0] == r['timestamp']
         assert r['scores_topk'] == sorted(r['scores_topk'], reverse=True)
-    with pytest.raises(NotImplementedError, match='bf16'):
-        port_cli.main_test(port_cli.parse_params(
-            argv + ['--alias', 'test_port_bf16', '--device', 'cpu',
-                    '--precision', 'bf16'], default_model='GMD'))
+    bf16 = argv + ['--alias', 'test_port_bf16', '--device', 'cpu',
+                   '--precision', 'bf16']
+    with open(port_cli.main_test(port_cli.parse_params(
+            bf16, default_model='GMD'))) as f:
+        results = json.load(f)['results']
+    assert sum(map(len, results.values())) == n
+    for train in (port_cli.main_train, port_cli.main_train_baseline):
+        with pytest.raises(NotImplementedError, match='precision bf16'):
+            train(port_cli.parse_params(bf16, default_model='GMD'))

@@ -108,8 +108,16 @@ def test_build_model_reads_the_config_and_refuses_what_is_not_ported():
     assert set(model.state_dict()) == set(_port_model(False).state_dict())
     assert {k: v.shape for k, v in model.state_dict().items()} == \
         {k: v.shape for k, v in _port_model(False).state_dict().items()}
-    with pytest.raises(NotImplementedError, match='bf16'):
-        build_model(dict(params, precision='bf16'), 'gmd', device='cpu')
+    # precision bf16 builds: bf16 compute, the same f32 weights
+    bf16 = build_model(dict(params, precision='bf16'), 'gmd', device='cpu')
+    assert bf16.dtype == torch.bfloat16 and model.dtype == torch.float32
+    assert {k: (v.shape, v.dtype) for k, v in bf16.state_dict().items()} == \
+        {k: (v.shape, v.dtype) for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        out = bf16.eval().eval_forward(torch.randn(2, T, D),
+                                       torch.randn(2, N, W))
+    assert out['start_prob'].dtype == torch.float32
+    assert out['match_prob'].dtype == torch.bfloat16
     # the baseline builds (tests/test_torch_baseline.py); unknown kinds raise
     assert not any(k.startswith(('csmm.', 'tod.'))
                    for k in build_model(params, 'baseline', device='cpu')

@@ -105,6 +105,34 @@ def test_lstm_kernel_matches_plain_on_cuda(T, B, H):
         assert (g - w).abs().max().item() <= K1_CUDA_TOL
 
 
+# K1 at bf16 (xw, W_hh and out bf16): the kernel and its plain version
+# round at the same points, so an f32 sum in another order moves at most a
+# rounding here and there by one bf16 ulp: 2^-8 for values in [0.5, 1),
+# which bounds |h| < 1 (chip_smoke.py's K6A_BF16_TOL)
+K1_BF16_CUDA_TOL = 4e-3
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('T,B,H', [(128, 32, 256), (15, 32, 256), (1, 3, 256),
+                                   (33, 5, 64), (9, 2, 8), (64, 16, 512),
+                                   (20, 3, 304)])
+def test_lstm_kernel_bf16_matches_plain_on_cuda(T, B, H):
+    xw, w_hh = (torch.from_numpy(a).cuda().bfloat16()
+                for a in _lstm_inputs(T + B, T, B, H))
+    before = lstm_recurrence.launches
+    with torch.no_grad():
+        got = lstm_recurrence(xw, w_hh)
+        again = lstm_recurrence(xw, w_hh)
+        want = lstm_recurrence_plain(xw, w_hh)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.launches == before + 2
+    assert [g.dtype for g in got] == [torch.bfloat16, torch.float32,
+                                      torch.float32]
+    for g, a, w in zip(got, again, want):
+        assert g.is_cuda and g.shape == w.shape and torch.equal(g, a)
+        assert (g.float() - w.float()).abs().max().item() <= K1_BF16_CUDA_TOL
+
+
 # --- the plan of K2's launch (CPU) --------------------------------------------
 
 H100_SMS = 132
@@ -406,3 +434,36 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
     args = [torch.from_numpy(a).cuda() for a in _scdm_inputs(0, 2, 4, 7, 32, 32)]
     with pytest.raises(RuntimeError, match='no_grad'):
         scdm_attention_fused(*(a.requires_grad_() for a in args))
+
+
+# K2 at bf16: the kernel's tanh_fwd lies within 4.4e-7 relative of
+# torch.tanh, so at a rounding tie `a` can round to the neighbouring bf16,
+# as can a logit whose f32 sum runs in another order; each such flip moves
+# C by less than one bf16 ulp of its largest element, and C itself rounds
+# to bf16 (one ulp of a value is at most 2^-7 of it): held to 4 ulps of
+# the largest |C|
+K2_BF16_CUDA_SHARE = 2.0 ** -6
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('B,T,N,Dh,Ds', [(32, 128, 15, 512, 512),
+                                         (3, 20, 7, 64, 32),
+                                         (8, 128, 40, 2048, 2048),
+                                         (5, 37, 17, 300, 256),
+                                         (3, 37, 17, 301, 255),
+                                         (2, 21, 70, 128, 96)])
+def test_scdm_kernel_bf16_matches_plain_on_cuda(B, T, N, Dh, Ds):
+    args = [torch.from_numpy(a).cuda().bfloat16()
+            for a in _scdm_inputs(N, B, T, N, Dh, Ds)]
+    before = scdm_attention_fused.launches
+    with torch.no_grad():
+        got = scdm_attention_fused(*args)
+        again = scdm_attention_fused(*args)
+        want = scdm_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert scdm_attention_fused.launches == before + 2
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= K2_BF16_CUDA_SHARE * want.float().abs().max().item()
+    with pytest.raises(TypeError, match='f32 only'):
+        S._launch_forward(tuple(args), want_p=True)

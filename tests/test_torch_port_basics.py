@@ -17,9 +17,11 @@ import shufflingvideosfortsg_torch
 from shufflingvideosfortsg_torch import _kernels
 from shufflingvideosfortsg_torch.cli import main_test, parse_params
 from shufflingvideosfortsg_torch.ops.lstm_scan import (lstm_recurrence,
-                                                       lstm_recurrence_plain)
-from shufflingvideosfortsg_torch.ops.scdm_fused import (scdm_attention_fused,
-                                                        scdm_attention_plain)
+                                                       lstm_recurrence_plain,
+                                                       lstm_recurrence_train)
+from shufflingvideosfortsg_torch.ops.scdm_fused import (
+    scdm_attention_fused, scdm_attention_fused_trainable,
+    scdm_attention_plain)
 from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -143,11 +145,24 @@ def test_wrappers_take_the_plain_version_on_cpu_tensors():
 
 
 def test_wrappers_raise_on_bf16():
+    """K1 and K2 take bf16 throughout (``precision: bf16``, held against
+    JAX in tests/test_torch_bf16.py); they raise on bf16 mixed with f32
+    and on f16, and the training kernels (K3, K4, K5) raise on bf16."""
     rng = np.random.RandomState(1)
+    xw, w = _k1_inputs(rng, dtype=torch.bfloat16)
+    assert lstm_recurrence(xw, w)[0].dtype == torch.bfloat16
+    args = _k2_inputs(rng, dtype=torch.bfloat16)
+    assert scdm_attention_fused(*args).dtype == torch.bfloat16
     with pytest.raises(TypeError, match='float32'):
-        lstm_recurrence(*_k1_inputs(rng, dtype=torch.bfloat16))
+        lstm_recurrence(xw, w.float())
     with pytest.raises(TypeError, match='float32'):
-        scdm_attention_fused(*_k2_inputs(rng, dtype=torch.bfloat16))
+        lstm_recurrence(*_k1_inputs(rng, dtype=torch.float16))
+    with pytest.raises(TypeError, match='float32'):
+        scdm_attention_fused(*args[:3], args[3].float())
+    with pytest.raises(TypeError, match='float32'):
+        lstm_recurrence_train(xw, w)
+    with pytest.raises(TypeError, match='float32'):
+        scdm_attention_fused_trainable(*args)
 
 
 def test_wrappers_never_fall_back_off_the_cpu():

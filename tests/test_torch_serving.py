@@ -342,9 +342,13 @@ def test_mesh_options_raise_on_one_card(weights, tmp_path):
         pg.set_corpus(PackedFeatureSource(root), dtype='bf16')
     with pytest.raises(RuntimeError, match='no video set'):
         pg.ground(None, np.zeros((2, N, 300), np.float32))
-    with pytest.raises(NotImplementedError, match='bf16'):
-        MultiQueryGrounder(port_params(precision='bf16'), weights[2],
-                           device='cpu')
+    # precision bf16 builds the grounder (tests/test_torch_bf16.py holds
+    # it against JAX's): bf16 recurrences cached, f32 weights
+    g16 = MultiQueryGrounder(port_params(precision='bf16'), weights[2],
+                             device='cpu')
+    g16.set_video(np.zeros((T, DV), np.float32))
+    assert g16._resident_rnn0.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in g16.model.parameters())
 
 
 # --- main_test with eval_topk ------------------------------------------------

@@ -352,6 +352,55 @@ def test_clip_by_global_norm_matches_optax(max_norm):
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(w), rtol=1e-6)
 
 
+@pytest.mark.parametrize('grouped', [False, True])
+def test_sgd_matches_torch_sgd_and_jax(grouped):
+    """The port's SGD (tensor arithmetic, so that a CUDA graph captures
+    it) over 3 updates of a Linear and a LayerNorm, with momentum 0.8 and
+    L2 decay (on the Linear weight only with ``group_weight``), against
+    ``torch.optim.SGD`` on the same groups and against the JAX package's
+    optax chain; parameters within test_grad_parity.py's tolerances after
+    every update (atol 2e-6, rtol 5e-3)."""
+    params = dict(optim='sgd', lr=0.5, lr_schd='ms', lr_step=[15],
+                  momentum=0.8, weight_decay=1e-2, group_weight=grouped)
+    rng = np.random.RandomState(0)
+    model = torch.nn.Sequential(torch.nn.Linear(6, 4), torch.nn.LayerNorm(4))
+    ref = torch.nn.Sequential(torch.nn.Linear(6, 4), torch.nn.LayerNorm(4))
+    ref.load_state_dict(model.state_dict())
+    state = TrainState(model, params, steps_per_epoch=2)
+    assert type(state.optimizer).__name__ == 'SGD'
+    assert not isinstance(state.optimizer, torch.optim.SGD)
+    torch_sgd = torch.optim.SGD(decay_groups(ref, 1e-2, grouped), lr=0.5,
+                                momentum=0.8)
+    tree = {'dense': {'kernel': model[0].weight.detach().numpy().T.copy(),
+                      'bias': model[0].bias.detach().numpy().copy()},
+            'norm': {'scale': model[1].weight.detach().numpy().copy(),
+                     'bias': model[1].bias.detach().numpy().copy()}}
+    tx = jax_state.make_optimizer(params, steps_per_epoch=2)
+    opt_state = tx.init(tree)
+    for _ in range(3):
+        grads = {k: {n: rng.randn(*a.shape).astype(np.float32)
+                     for n, a in v.items()} for k, v in tree.items()}
+        for net in (model, ref):
+            net[0].weight.grad = _t(grads['dense']['kernel'].T.copy())
+            net[0].bias.grad = _t(grads['dense']['bias'])
+            net[1].weight.grad = _t(grads['norm']['scale'])
+            net[1].bias.grad = _t(grads['norm']['bias'])
+        state.apply_gradients()
+        torch_sgd.step()
+        updates, opt_state = tx.update(grads, opt_state, tree)
+        tree = jax.tree.map(np.asarray, optax.apply_updates(tree, updates))
+        want = {'0.weight': tree['dense']['kernel'].T,
+                '0.bias': tree['dense']['bias'],
+                '1.weight': tree['norm']['scale'],
+                '1.bias': tree['norm']['bias']}
+        for k, p in model.state_dict().items():
+            np.testing.assert_allclose(p.numpy(), want[k], atol=2e-6,
+                                       rtol=5e-3, err_msg=k)
+            np.testing.assert_allclose(p.numpy(),
+                                       ref.state_dict()[k].numpy(),
+                                       atol=2e-6, rtol=5e-3, err_msg=k)
+
+
 def test_decay_groups_follow_group_weight_mask():
     params = _params()
     _, weights = _jax_setup(params)
