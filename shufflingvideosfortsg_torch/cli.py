@@ -32,9 +32,10 @@ JAX's ``main_train_baseline`` does.
 (``timestamps_topk``, ``scores_topk``; finite scores only) into the
 submit beside the top-1 span, and the retrieval table gains its R@k rows.
 
-``precision: bf16`` runs the test drivers (and the grounder) in bf16 with
-f32 weights, as the JAX package does. Not ported yet, and refused in
-training: ``precision: bf16`` (ROADMAP §1 item 5b), ``multi_seed``,
+``precision: bf16`` runs the train and test drivers (and the grounder) in
+bf16 with f32 weights and f32 optimizer state, as the JAX package does,
+cuBLAS's bf16 products summed in f32 (``utils/device.exact_bf16_products``).
+Not ported yet, and refused in training: ``multi_seed``,
 ``pipeline_stages``, ``tensor_parallel``, ``fsdp``,
 ``grad_accum_steps > 1``, ``async_checkpoint`` and ``--start_from auto``. A non-finite training
 loss raises at the watchdog's cadence; the JAX watchdog's emergency
@@ -57,7 +58,7 @@ from .config import DEFAULTS, load_config
 from .data.device_bank import INDEX_KEYS, maybe_device_bank
 from .data.pipeline import BatchLoader, SentenceGroundingDataset
 from .eval.iou import retrieval_eval
-from .models.build import build_model, compute_dtype
+from .models.build import build_model
 from .train.state import TrainState
 from .train.steps import (HOST_PAIR_KEYS, STEP_KEYS, TRAIN_KEYS,
                           make_baseline_eval_step, make_baseline_train_step,
@@ -213,8 +214,6 @@ def _seeded_model(params: Dict[str, Any], device: torch.device,
 
 def _refuse_unported_training(params: Dict[str, Any]) -> None:
     refused = {
-        'precision bf16 (ROADMAP.md §1 item 5b)':
-            compute_dtype(params) == torch.bfloat16,
         'multi_seed': int(params.get('multi_seed', 0) or 0) > 1,
         'pipeline_stages': int(params.get('pipeline_stages', 0) or 0) > 0,
         'tensor_parallel': int(params.get('tensor_parallel', 0) or 0) > 1,
@@ -545,6 +544,8 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
     ``generator``."""
     device = resolve_device(params.get('device', 'cuda'))
     _refuse_unported_training(params)
+    if device.type == 'cuda':
+        exact_bf16_products()
     logger = setup_logger(params['alias'])
     saver = RunManager(params)
     lg = str(params['vfeat_fn']).lower() == 'lg'

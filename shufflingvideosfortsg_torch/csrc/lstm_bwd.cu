@@ -3,7 +3,9 @@
 // One kernel template serves two Pallas TPU kernels of
 // shufflingvideosfortsg_tpu/ops/pallas/lstm_scan.py:
 //   K4  `lstm_scan_pallas_bwd_flat` (:1024, body `_lstm_bwd_kernel_flat`
-//       :766): flat layout, f32;
+//       :766): flat layout, xw/out/d_out and w_hh both f32 or both bf16
+//       (the model at `precision: bf16`: `lstm_flat_fused` takes bf16 xw
+//       and w_hh, ops/rnn.py:201-225);
 //   K6c `lstm_scan_pallas_bwd` (:655, body `_lstm_bwd_kernel` :385, contract
 //       :609-660): stacked layout, xw/out/d_out in f32 or bf16, w_hh in f32
 //       or bf16.
@@ -696,11 +698,14 @@ cudaError_t launch(BwdArgs a, cudaStream_t st) {
 }
 
 // Calls f.template operator()<L, XT, WT>() for the codes, or reports them
-// invalid: the flat layout is f32 only.
+// invalid: the flat layout takes xw and w_hh both f32 or both bf16.
 template <typename F>
 cudaError_t dispatch(int layout, int x_dtype, int w_dtype, F f) {
+    std::integral_constant<int, kFlat> flat;
     if (layout == kFlat && x_dtype == kF32 && w_dtype == kF32)
-        return f(std::integral_constant<int, kFlat>{}, float{}, float{});
+        return f(flat, float{}, float{});
+    if (layout == kFlat && x_dtype == kBF16 && w_dtype == kBF16)
+        return f(flat, bf16{}, bf16{});
     if (layout != kStacked) return cudaErrorInvalidValue;
     std::integral_constant<int, kStacked> stacked;
     if (x_dtype == kF32 && w_dtype == kF32) return f(stacked, float{}, float{});
@@ -722,7 +727,12 @@ int svtsg_lstm_bwd_max_rows(int H, int smem_limit, int x_bytes, int w_global) {
     return max_rows(H, smem_limit, x_bytes, w_global);
 }
 
-// As svtsg_lstm_active_clusters, for the backward recurrence.
+// As svtsg_lstm_active_clusters, for the backward recurrence. Every
+// instantiation of a storage size shares the shared memory BwdLayout gives
+// for these arguments, takes no static shared memory, and fits one block an
+// SM by registers (__launch_bounds__(kThreads, 1): at most 255 a thread),
+// so the f32 one stands for 4-byte storage and the stacked bf16-xw one for
+// 2-byte storage, the flat bf16 layout (K4 at bf16) among them.
 int svtsg_lstm_bwd_active_clusters(int H, int rows, int x_bytes, int w_global,
                                    int device) {
     const int smem = BwdLayout(rows, H, x_bytes, w_global).total;
@@ -741,7 +751,8 @@ int svtsg_lstm_bwd_active_clusters(int H, int rows, int x_bytes, int w_global,
 // over a batch of B rows cut into n_slices near-equal row slices, one
 // cluster a (direction, slice), and the (step, row) pairs of the weight
 // gradient cut into wg_splits, one block of a tile's cluster each. layout:
-// kFlat (f32 only: K4) or kStacked (K6c); xw_dtype (xw, out, d_out) /
+// kFlat (K4: xw and w_hh both f32 or both bf16) or kStacked (K6c);
+// xw_dtype (xw, out, d_out) /
 // w_dtype: kF32 or kBF16. w_glob as in svtsg_lstm_recurrence. Returns the
 // CUDA error code (0 on success).
 int svtsg_lstm_bwd(const void* xw, const void* w_hh, const void* out,

@@ -89,14 +89,16 @@ def scdm_bound(B: int, T: int, N: int, Dh: int, Ds: int, keep_p: bool,
     return bound_ms(flops, nbytes)
 
 
-def scdm_bwd_bound(B: int, T: int, N: int, Dh: int):
+def scdm_bwd_bound(B: int, T: int, N: int, Dh: int, elem_bytes: int = 4):
     """The least time of the backward kernel's function: (ms, 'operations'
     or 'bytes'). Per (b,t,n,k) the add, the tanh, d_w's multiply-add, 1 -
     a^2 (2), its product with dl and the sums into d_vp and d_sp, counted
-    as 10 f32 operations; video_proj, sent_proj, w, P and dP read once,
-    d_vp, d_sp and d_w written once."""
+    as 10 f32 operations; video_proj, sent_proj, w and dP (elements of
+    ``elem_bytes``: f32 4, bf16 2) and P (f32) read once, d_vp, d_sp and
+    d_w (in the inputs' type) written once."""
     return bound_ms(10 * B * T * N * Dh,
-                    4 * (2 * (B * T * Dh + B * N * Dh + Dh) + 2 * B * T * N))
+                    elem_bytes * (2 * (B * T * Dh + B * N * Dh + Dh)
+                                  + B * T * N) + 4 * B * T * N)
 
 
 def bound_ms(flops: float, nbytes: float):

@@ -59,18 +59,17 @@ FLAT, STACKED = 0, 1
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-# K1 takes xw and w_hh both f32 or both bf16; K3 and K4 take f32
+# the flat kernels K1, K3 and K4 take xw and w_hh both f32 or both bf16
 _F32 = (torch.float32,)
-_K1_DTYPES = (torch.float32, torch.bfloat16)
+_FLAT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_inputs(xw_flat: Tensor, w_hh: Tensor,
-                  dtypes: Tuple[torch.dtype, ...] = _F32
+                  dtypes: Tuple[torch.dtype, ...] = _FLAT_DTYPES
                   ) -> Tuple[int, int, int]:
     if xw_flat.dtype not in dtypes or w_hh.dtype != xw_flat.dtype:
-        raise TypeError(f'xw_flat and w_hh must both be one of {dtypes} '
-                        '(K1 takes f32 or bf16, the training kernels K3 '
-                        f'and K4 f32), got {xw_flat.dtype} and {w_hh.dtype}')
+        raise TypeError(f'xw_flat and w_hh must both be one of {dtypes}, '
+                        f'got {xw_flat.dtype} and {w_hh.dtype}')
     if xw_flat.dim() != 3 or xw_flat.shape[-1] % 8:
         raise ValueError(f'xw_flat must be [T, B, 8H], got {tuple(xw_flat.shape)}')
     T, B, H8 = xw_flat.shape
@@ -207,7 +206,7 @@ def _launch_forward(name: str, xw: Tensor, w_hh: Tensor, layout: int,
     K3 and K6b carry the c_seq residual, K1 and K6a do not. Returns (out,
     c_seq or None, h_T, c_T)."""
     if layout == FLAT:
-        T, B, H = _check_inputs(xw, w_hh, _K1_DTYPES)
+        T, B, H = _check_inputs(xw, w_hh)
         out_shape = (T, B, 2 * H)
     else:
         T, B, H = _check_stacked(xw, w_hh)
@@ -357,8 +356,9 @@ def lstm_weight_grad(out: Tensor, d_xw: Tensor, w_dtype: torch.dtype,
     """The weight-gradient kernel of ``csrc/lstm_bwd.cu`` alone (K4 and K6c
     launch it right after their recurrence). Same contract as
     :func:`lstm_weight_grad_plain`, which CPU tensors take; CUDA tensors
-    launch the kernel or raise (out f32, or bf16 on the stacked layout;
-    d_xw f32; contiguous, on one card, H a multiple of 8)."""
+    launch the kernel or raise (on the flat layout out and w_dtype both
+    f32 or both bf16, on the stacked layout each f32 or bf16; d_xw f32;
+    contiguous, on one card, H a multiple of 8)."""
     if layout not in (FLAT, STACKED):
         raise ValueError(f'layout must be FLAT or STACKED, got {layout}')
     if out.dim() != 3 + layout or (layout == STACKED and out.shape[1] != 2):
@@ -371,8 +371,7 @@ def lstm_weight_grad(out: Tensor, d_xw: Tensor, w_dtype: torch.dtype,
         raise ValueError(f'd_xw must be f32 {list(want)}, got {d_xw.dtype} '
                          f'{list(d_xw.shape)}')
     if (out.dtype not in _DTYPE_CODES or w_dtype not in _DTYPE_CODES
-            or (layout == FLAT and (out.dtype, w_dtype)
-                != (torch.float32, torch.float32))):
+            or (layout == FLAT and out.dtype != w_dtype)):
         raise TypeError(f'lstm_weight_grad: out {out.dtype}, w_dtype '
                         f'{w_dtype} on layout {layout}')
     if _on_cpu(out, d_xw):
@@ -399,7 +398,7 @@ def lstm_exchange_floor(xw_flat: Tensor, w_hh: Tensor) -> Tensor:
     prefetch, gate math, stores, exchange of h and cluster barrier remain.
     Same inputs as :func:`lstm_recurrence`, on a card only; returns ``out``
     (that of a layer whose w_hh is zero)."""
-    T, B, H = _check_inputs(xw_flat, w_hh)
+    T, B, H = _check_inputs(xw_flat, w_hh, _F32)
     dev = _cuda_checks('lstm_exchange_floor', (xw_flat, w_hh), H)
     cap, a_wave, w_global = _cluster_plan('lstm_exchange_floor', 'svtsg_lstm',
                                           H, 4, _device_index(dev))
@@ -429,43 +428,42 @@ def _cotangent(g: Optional[Tensor], shape, dtype, like: Tensor) -> Tensor:
 
 # --- flat layout: K1, K3, K4 -------------------------------------------------
 
+def _to_stacked(x_flat: Tensor, width: int) -> Tensor:
+    """A flat [T, B, 2W] tensor (xw: W = 4H; out, d_out: W = H) in the
+    stacked layout [T, 2, B, W]: direction 1 time-reversed, so that step s
+    of either direction is row s."""
+    return torch.stack([x_flat[..., :width], x_flat.flip(0)[..., width:]],
+                       dim=1)
+
+
+def _to_flat(x: Tensor) -> Tensor:
+    """:func:`_to_stacked` undone: [T, 2, B, W] by step -> [T, B, 2W] in
+    natural time order."""
+    return torch.cat([x[:, 0], x.flip(0)[:, 1]], dim=-1)
+
+
 def lstm_recurrence_train_plain(xw_flat: Tensor, w_hh: Tensor
                                 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """The recurrence as PyTorch operations (the JAX ``_lstm_scan`` step,
     ``ops/rnn.py:76-103``, on the flat layout), with the cell states of
-    every step. Same contract as :func:`lstm_recurrence_train`."""
+    every step: the stacked loop (:func:`_stacked_forward_plain`) over the
+    forward half and the time-reversed backward half, so in bf16 the
+    rounding points of ``_lstm_kernel_train_flat``
+    (``ops/pallas/lstm_scan.py:722-747``): h in f32, rounded to bf16 for
+    the product, which sums in f32; the gates and c in f32; out rounded.
+    Same contract as :func:`lstm_recurrence_train`."""
     T, B, H = _check_inputs(xw_flat, w_hh)
-    H4 = 4 * H
-    h = xw_flat.new_zeros(2, B, H)
-    c = xw_flat.new_zeros(2, B, H)
-    out = xw_flat.new_empty(T, B, 2 * H)
-    c_seq = xw_flat.new_empty(T, 2, B, H)
-    for s in range(T):
-        x = torch.stack([xw_flat[s, :, :H4], xw_flat[T - 1 - s, :, H4:]])
-        gates = torch.baddbmm(x, h, w_hh)
-        i = torch.sigmoid(gates[..., :H])
-        f = torch.sigmoid(gates[..., H:2 * H])
-        g = torch.tanh(gates[..., 2 * H:3 * H])
-        o = torch.sigmoid(gates[..., 3 * H:])
-        c = f * c + i * g
-        h = o * torch.tanh(c)
-        out[s, :, :H] = h[0]
-        out[T - 1 - s, :, H:] = h[1]
-        c_seq[s] = c
-    return out, c_seq, h, c
+    out, c_seq, h_T, c_T = _stacked_forward_plain(
+        _to_stacked(xw_flat, 4 * H), w_hh, gates_bf16=False)
+    return _to_flat(out), c_seq, h_T, c_T
 
 
 def lstm_recurrence_plain(xw_flat: Tensor, w_hh: Tensor
                           ) -> Tuple[Tensor, Tensor, Tensor]:
     """Same contract as :func:`lstm_recurrence`, as PyTorch operations:
-    the stacked loop (:func:`_stacked_forward_plain`, the rounding points
-    of the JAX bodies) over the flat layout's forward half and its
-    time-reversed backward half."""
-    T, B, H = _check_inputs(xw_flat, w_hh, _K1_DTYPES)
-    H4 = 4 * H
-    xw = torch.stack([xw_flat[..., :H4], xw_flat.flip(0)[..., H4:]], dim=1)
-    out, _, h_T, c_T = _stacked_forward_plain(xw, w_hh, gates_bf16=False)
-    return torch.cat([out[:, 0], out.flip(0)[:, 1]], dim=-1), h_T, c_T
+    :func:`lstm_recurrence_train_plain` without the cell states."""
+    out, _, h_T, c_T = lstm_recurrence_train_plain(xw_flat, w_hh)
+    return out, h_T, c_T
 
 
 def lstm_recurrence(xw_flat: Tensor, w_hh: Tensor
@@ -482,9 +480,9 @@ def lstm_recurrence(xw_flat: Tensor, w_hh: Tensor
     [2, B, H] f32).
 
     When autograd needs a gradient of either input, the call goes through
-    :class:`LSTMRecurrence` (K3 forward, K4 backward; f32 only). Otherwise
-    CPU tensors take :func:`lstm_recurrence_plain` and CUDA tensors launch
-    K1 (``csrc/lstm_scan.cu``) or raise: it takes contiguous inputs on one
+    :class:`LSTMRecurrence` (K3 forward, K4 backward). Otherwise CPU
+    tensors take :func:`lstm_recurrence_plain` and CUDA tensors launch K1
+    (``csrc/lstm_scan.cu``) or raise: it takes contiguous inputs on one
     card, any T >= 1, H a multiple of 8 (a cluster's 8 blocks take H/8
     units each) and any B, in one launch: the batch's row slices go to
     clusters that run independently.
@@ -492,7 +490,7 @@ def lstm_recurrence(xw_flat: Tensor, w_hh: Tensor
     if torch.is_grad_enabled() and (xw_flat.requires_grad
                                     or w_hh.requires_grad):
         return LSTMRecurrence.apply(xw_flat, w_hh)
-    _check_inputs(xw_flat, w_hh, _K1_DTYPES)
+    _check_inputs(xw_flat, w_hh)
     if _on_cpu(xw_flat, w_hh):
         return lstm_recurrence_plain(xw_flat, w_hh)
     out, _, h_T, c_T = _launch_forward('lstm_recurrence', xw_flat, w_hh,
@@ -508,7 +506,8 @@ def lstm_recurrence_train(xw_flat: Tensor, w_hh: Tensor
                           ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """K3: :func:`lstm_recurrence` plus the cell-state residual.
 
-    Returns (out [T, B, 2H], c_seq [T, 2, B, H], h_T, c_T), all f32.
+    Returns (out [T, B, 2H] in xw's dtype, c_seq [T, 2, B, H], h_T, c_T
+    f32), as JAX's ``_lstm_scan_pallas_train_flat_impl`` gives them.
     ``c_seq`` is indexed by STEP s, as the JAX kernel writes it:
     ``c_seq[s] = [c_fwd(t=s) | c_bwd(step s, time T-1-s)]``. CPU tensors
     take :func:`lstm_recurrence_train_plain`; CUDA tensors launch
@@ -530,16 +529,20 @@ lstm_recurrence_train.launches = 0
 
 def _check_bwd_inputs(xw_flat, w_hh, out, c_seq, d_out, d_hT, d_cT):
     T, B, H = _check_inputs(xw_flat, w_hh)
-    want = {'out': (T, B, 2 * H), 'c_seq': (T, 2, B, H),
-            'd_out': (T, B, 2 * H), 'd_hT': (2, B, H), 'd_cT': (2, B, H)}
+    f32 = torch.float32
+    want = {'out': ((T, B, 2 * H), xw_flat.dtype),
+            'c_seq': ((T, 2, B, H), f32),
+            'd_out': ((T, B, 2 * H), xw_flat.dtype),
+            'd_hT': ((2, B, H), f32), 'd_cT': ((2, B, H), f32)}
     got = {'out': out, 'c_seq': c_seq, 'd_out': d_out, 'd_hT': d_hT,
            'd_cT': d_cT}
     for k, t in got.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f'lstm_recurrence_bwd takes float32 only, got '
-                            f'{k} {t.dtype}')
-        if tuple(t.shape) != want[k]:
-            raise ValueError(f'{k} must be {list(want[k])}, got '
+        shape, dtype = want[k]
+        if t.dtype != dtype:
+            raise TypeError(f'lstm_recurrence_bwd: {k} must be {dtype}, got '
+                            f'{t.dtype}')
+        if tuple(t.shape) != shape:
+            raise ValueError(f'{k} must be {list(shape)}, got '
                              f'{list(t.shape)}')
     return T, B, H
 
@@ -547,42 +550,18 @@ def _check_bwd_inputs(xw_flat, w_hh, out, c_seq, d_out, d_hT, d_cT):
 def lstm_recurrence_bwd_plain(xw_flat: Tensor, w_hh: Tensor, out: Tensor,
                               c_seq: Tensor, d_out: Tensor, d_hT: Tensor,
                               d_cT: Tensor) -> Tuple[Tensor, Tensor]:
-    """The backward recurrence as PyTorch operations: the gate algebra of
-    the JAX kernel body (``ops/pallas/lstm_scan.py:858-907``), one reverse
-    loop over the step s for both directions. Same contract as
-    :func:`lstm_recurrence_bwd`."""
+    """The backward recurrence as PyTorch operations: the stacked loop
+    (:func:`lstm_scan_stacked_bwd_plain`) over the flat tensors laid out
+    by step, whose gate algebra and rounding points are those of the flat
+    JAX body (``ops/pallas/lstm_scan.py:858-907``): in bf16 h_prev comes
+    from the bf16 out, the gates are f32, and dgates is rounded to bf16
+    for the dh_prev and d_w_hh products, both summed in f32. Same
+    contract as :func:`lstm_recurrence_bwd`."""
     T, B, H = _check_bwd_inputs(xw_flat, w_hh, out, c_seq, d_out, d_hT, d_cT)
-    H4 = 4 * H
-    dh = d_hT.clone()
-    dc = d_cT.clone()
-    d_xw = xw_flat.new_empty(T, B, 8 * H)
-    d_w = xw_flat.new_zeros(2, H, H4)
-    zeros = xw_flat.new_zeros(2, B, H)
-    for s in range(T - 1, -1, -1):
-        if s > 0:
-            h_prev = torch.stack([out[s - 1, :, :H], out[T - s, :, H:]])
-            c_prev = c_seq[s - 1]
-        else:
-            h_prev, c_prev = zeros, zeros
-        x = torch.stack([xw_flat[s, :, :H4], xw_flat[T - 1 - s, :, H4:]])
-        gates = torch.baddbmm(x, h_prev, w_hh)
-        i = torch.sigmoid(gates[..., :H])
-        f = torch.sigmoid(gates[..., H:2 * H])
-        g = torch.tanh(gates[..., 2 * H:3 * H])
-        o = torch.sigmoid(gates[..., 3 * H:])
-        dh = dh + torch.stack([d_out[s, :, :H], d_out[T - 1 - s, :, H:]])
-        tc = torch.tanh(c_seq[s])
-        dc = dc + dh * o * (1.0 - tc * tc)
-        dgates = torch.cat([dc * g * i * (1.0 - i),
-                            dc * c_prev * f * (1.0 - f),
-                            dc * i * (1.0 - g * g),
-                            dh * tc * o * (1.0 - o)], dim=-1)  # [2, B, 4H]
-        d_xw[s, :, :H4] = dgates[0]
-        d_xw[T - 1 - s, :, H4:] = dgates[1]
-        dh = torch.bmm(dgates, w_hh.transpose(1, 2))
-        d_w += torch.bmm(h_prev.transpose(1, 2), dgates)
-        dc = dc * f
-    return d_xw, d_w
+    d_xw, d_w = lstm_scan_stacked_bwd_plain(
+        _to_stacked(xw_flat, 4 * H), w_hh, _to_stacked(out, H), c_seq,
+        _to_stacked(d_out, H), d_hT, d_cT)
+    return _to_flat(d_xw), d_w
 
 
 def lstm_recurrence_bwd(xw_flat: Tensor, w_hh: Tensor, out: Tensor,
@@ -590,14 +569,16 @@ def lstm_recurrence_bwd(xw_flat: Tensor, w_hh: Tensor, out: Tensor,
                         d_cT: Tensor) -> Tuple[Tensor, Tensor]:
     """K4: gradients of one BiLSTM layer's recurrence.
 
-    Takes the forward's inputs (xw_flat [T, B, 8H], w_hh [2, H, 4H]), its
-    residuals from :func:`lstm_recurrence_train` (out [T, B, 2H], c_seq
-    [T, 2, B, H]) and the cotangents of its outputs (d_out [T, B, 2H],
-    d_hT and d_cT [2, B, H]). Returns (d_xw [T, B, 8H] in the flat layout
-    of xw_flat, d_w_hh [2, H, 4H]), all f32.
+    Takes the forward's inputs (xw_flat [T, B, 8H], w_hh [2, H, 4H], both
+    f32 or both bf16), its residuals from :func:`lstm_recurrence_train`
+    (out [T, B, 2H] in xw's dtype, c_seq [T, 2, B, H] f32) and the
+    cotangents of its outputs (d_out [T, B, 2H] in xw's dtype, d_hT and
+    d_cT [2, B, H] f32). Returns (d_xw [T, B, 8H] in the flat layout of
+    xw_flat, d_w_hh [2, H, 4H]), both f32, as
+    ``lstm_scan_pallas_bwd_flat`` gives them.
 
     CPU tensors take :func:`lstm_recurrence_bwd_plain`. CUDA tensors launch
-    ``csrc/lstm_bwd.cu`` or raise: contiguous f32 inputs on one card, H a
+    ``csrc/lstm_bwd.cu`` or raise: contiguous inputs on one card, H a
     multiple of 8 and any B, in one launch group (the recurrence over all
     row slices, then the weight-gradient kernel).
     """
@@ -618,7 +599,10 @@ class LSTMRecurrence(torch.autograd.Function):
     custom VJP ``lstm_flat_fused``, ``ops/pallas/lstm_scan.py:1033-1058``).
     Same contract as :func:`lstm_recurrence`; saves (xw, w_hh, out, c_seq)
     and gives d_xw in the flat layout, so the input projection's backward
-    is one product too."""
+    is one product too. As ``_flat_fused_bwd`` does, it casts d_out to
+    out's dtype and d_hT, d_cT to f32 before K4, and returns d_xw in xw's
+    dtype and d_w_hh in w_hh's (in bf16 the cast of the f32 weights then
+    widens d_w_hh back to f32, as JAX's ``astype`` VJP does)."""
 
     @staticmethod
     def forward(ctx, xw_flat: Tensor, w_hh: Tensor):
@@ -633,10 +617,10 @@ class LSTMRecurrence(torch.autograd.Function):
         f32 = torch.float32
         d_xw, d_w = lstm_recurrence_bwd(
             xw_flat, w_hh, out, c_seq,
-            _cotangent(d_out, (T, B, 2 * H), f32, xw_flat),
+            _cotangent(d_out, out.shape, out.dtype, xw_flat),
             _cotangent(d_hT, (2, B, H), f32, xw_flat),
             _cotangent(d_cT, (2, B, H), f32, xw_flat))
-        return d_xw, d_w
+        return d_xw.to(xw_flat.dtype), d_w.to(w_hh.dtype)
 
 
 # --- stacked layout: K6a, K6b, K6c, K6d --------------------------------------

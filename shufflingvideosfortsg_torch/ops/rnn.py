@@ -11,9 +11,9 @@ flat [T, B, 8H] layout, and the recurrence is
 without gradients, K3 and K4 with them). At a ``dtype`` of bf16 (JAX
 ``ops/rnn.py:133,201-225``) the input is cast to bf16, the projection is
 :func:`~shufflingvideosfortsg_torch.ops.dense.dense` of the f32 weights
-and the f32 sum of the two biases, K1 takes bf16 xw and W_hh (its h and
-c stay f32) and gives bf16 outputs, and the final states are cast to
-bf16.
+and the f32 sum of the two biases, K1 (in training K3 and K4) takes bf16
+xw and W_hh (its h and c stay f32) and gives bf16 outputs, dropout runs
+on the bf16 outputs, and the final states are cast to bf16.
 """
 
 from __future__ import annotations
@@ -35,13 +35,18 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     """Inverted dropout (flax ``nn.Dropout``: keep with probability 1-p,
     scale kept values by 1/(1-p)) with the mask drawn from ``generator``,
     so a run's masks follow its own seed and not the global RNG. The
-    generator lives on ``x``'s device; None draws from the default one."""
+    generator lives on ``x``'s device; None draws from the default one.
+    The uniform draws are f32 whatever x's dtype, as JAX's bernoulli
+    draws them; in bf16 x is divided by the keep rate rounded to bf16, as
+    flax divides a bf16 array by the Python float."""
     if not training or p <= 0.0:
         return x
     keep = 1.0 - p
     u = torch.rand(x.shape, generator=generator, device=x.device,
-                   dtype=x.dtype)
-    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+                   dtype=torch.float32)
+    scale = keep if x.dtype == torch.float32 else \
+        float(torch.tensor(keep, dtype=x.dtype))
+    return torch.where(u < keep, x / scale, torch.zeros_like(x))
 
 
 class BiLSTM(nn.Module):

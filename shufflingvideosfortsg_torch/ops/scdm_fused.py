@@ -35,9 +35,8 @@ _BWD_COLS = (256, 128, 64, 32)
 _BWD_ROWS = (32, 16, 8, 4)
 
 
-# the kernel's dtype codes (csrc/common.cuh: kF32, kBF16); K5 takes f32
+# the kernels' dtype codes (csrc/common.cuh: kF32, kBF16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_F32 = (torch.float32,)
 
 
 def _check_inputs(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
@@ -153,12 +152,10 @@ def _scdm_rows(B: int, T: int, N: int, device: int,
 def _launch_forward(args, want_p: bool) -> Tuple[Tensor, Optional[Tensor]]:
     """One launch of ``scdm_fwd_kernel`` on CUDA tensors over the planned
     tiles of rows; returns (C in the inputs' dtype, P or None). P
-    [B, T, N] f32 is allocated and written only when asked for, in f32
-    only (K5's forward)."""
+    [B, T, N] is allocated and written only when asked for (K5's forward):
+    the f32 softmax, which in bf16 the kernel rounds only for C."""
     B, T, N, Dh, Ds = _check_inputs(*args)
     dt = args[0].dtype
-    if want_p and dt != torch.float32:
-        raise TypeError(f'scdm_attention_fused keeps P in f32 only, got {dt}')
     dev = _cuda_device('scdm_attention_fused', args)
     index = _device_index(dev)
     rows = _scdm_rows(B, T, N, index, dt.itemsize)
@@ -192,7 +189,7 @@ def scdm_attention_fused(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     words of logits, and runs the softmax and the context product from
     shared memory; the sums run in a fixed order, so two runs give equal
     bits. It has no backward: call it with gradients off, or call
-    :func:`scdm_attention_fused_trainable` (f32).
+    :func:`scdm_attention_fused_trainable`.
     """
     args = (video_proj, sent_proj, w, sent_feat)
     _check_inputs(*args)
@@ -236,12 +233,32 @@ def scdm_attention_bwd_core_plain(video_proj: Tensor, sent_proj: Tensor,
     dl = P (dP - sum_n P dP), then with a = tanh(vp[b,t] + sp[b,n])
     (materialised here, [B, T, N, Dh]) d_video_proj = w sum_n dl (1 - a^2),
     d_sent_proj = w sum_t dl (1 - a^2) and d_w = sum_{b,t,n} dl a. ``tanh``
-    computes a (:func:`forward_tanh` gives the kernels' own)."""
-    act = tanh(video_proj[:, :, None, :] + sent_proj[:, None, :, :])
-    dl = P * (dP - (P * dP).sum(-1, keepdim=True))
-    du = dl[..., None] * (1.0 - act * act)
-    return (du.sum(2) * w, du.sum(1) * w,
-            torch.einsum('btn,btnh->h', dl, act))
+    computes a (:func:`forward_tanh` gives the kernels' own).
+
+    In bf16 (video_proj, sent_proj, w and dP bf16, P the f32 softmax) at
+    the rounding points of ``jax.vjp(scdm_attention)`` (``csrc/scdm.cu``):
+    a = bf16(tanh(bf16(vp + sp))), dl rounded to bf16, each term's
+    du = bf16(u + bf16(u a)) with u = bf16(bf16(dl w) bf16(1 - a)), the
+    three sums in f32, each result rounded to bf16 once."""
+    if video_proj.dtype == torch.float32:
+        act = tanh(video_proj[:, :, None, :] + sent_proj[:, None, :, :])
+        dl = P * (dP - (P * dP).sum(-1, keepdim=True))
+        du = dl[..., None] * (1.0 - act * act)
+        return (du.sum(2) * w, du.sum(1) * w,
+                torch.einsum('btn,btnh->h', dl, act))
+    dt, f32 = video_proj.dtype, torch.float32
+
+    def rnd(x: Tensor) -> Tensor:
+        return x.to(dt).to(f32)
+
+    s = video_proj[:, :, None, :] + sent_proj[:, None, :, :]  # rounded
+    act = rnd(tanh(s.to(f32)))
+    dPf = dP.to(f32)
+    dl = rnd(P * (dPf - (P * dPf).sum(-1, keepdim=True)))
+    u = rnd(rnd(dl[..., None] * w.to(f32)) * rnd(1.0 - act))
+    du = rnd(u + rnd(u * act))
+    return (du.sum(2).to(dt), du.sum(1).to(dt),
+            torch.einsum('btn,btnh->h', dl, act).to(dt))
 
 
 def scdm_attention_bwd_plain(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
@@ -250,14 +267,19 @@ def scdm_attention_bwd_plain(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     """The gradients of :func:`scdm_attention_plain` written out, without
     autograd: the VJP that ``_scdm_bwd`` takes with ``jax.vjp`` of
     ``ops/attention.py::scdm_attention``. grad_out is dC [B, T, Ds].
-    Recomputes P, then dP = dC sent_feat^T, d_sent_feat = P^T dC, and the
-    rest as :func:`scdm_attention_bwd_core_plain`. Returns (d_video_proj,
-    d_sent_proj, d_w, d_sent_feat)."""
+    Recomputes P (in bf16 the f32 softmax of the bf16 logits), then
+    dP = dC sent_feat^T, d_sent_feat = P^T dC (in bf16 products of bf16
+    operands summed in f32 and rounded, P rounded first, as JAX's VJP
+    takes them), and the rest as :func:`scdm_attention_bwd_core_plain`.
+    Returns (d_video_proj, d_sent_proj, d_w, d_sent_feat), in the inputs'
+    dtype."""
     _check_inputs(video_proj, sent_proj, w, sent_feat)
+    dt, f32 = video_proj.dtype, torch.float32
     act = torch.tanh(video_proj[:, :, None, :] + sent_proj[:, None, :, :])
-    P = torch.softmax(torch.einsum('btnh,h->btn', act, w), dim=-1)
+    logits = torch.einsum('btnh,h->btn', act.to(f32), w.to(f32)).to(dt)
+    P = torch.softmax(logits.to(f32), dim=-1)
     dP = torch.bmm(grad_out, sent_feat.transpose(1, 2))
-    d_sf = torch.bmm(P.transpose(1, 2), grad_out)
+    d_sf = torch.bmm(P.to(dt).transpose(1, 2), grad_out)
     return (*scdm_attention_bwd_core_plain(video_proj, sent_proj, w, P, dP),
             d_sf)
 
@@ -346,20 +368,23 @@ def scdm_attention_bwd_core(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
                             P: Tensor, dP: Tensor
                             ) -> Tuple[Tensor, Tensor, Tensor]:
     """K5's backward kernel: (d_video_proj, d_sent_proj, d_w) from the
-    forward's inputs, its softmax P and dP, as
-    :func:`scdm_attention_bwd_core_plain`, which CPU tensors take. CUDA
-    tensors launch ``scdm_bwd_kernel`` once or raise (contiguous f32 on one
-    card, any shape), with the blocks :func:`_scdm_bwd_plan` picks. The
-    partial sums over spans of t and batch rows are added in a fixed order,
-    so two runs give equal bits."""
-    if any(a.dtype != torch.float32 for a in (video_proj, sent_proj, w)):
-        raise TypeError('scdm_attention_bwd_core takes f32 only, got '
+    forward's inputs, its softmax P (f32) and dP, as
+    :func:`scdm_attention_bwd_core_plain`, which CPU tensors take; the
+    results in the inputs' dtype. video_proj, sent_proj, w and dP are all
+    f32 or all bf16. CUDA tensors launch ``scdm_bwd_kernel`` once or raise
+    (contiguous, on one card, any shape), with the blocks
+    :func:`_scdm_bwd_plan` picks. The partial sums over spans of t and
+    batch rows are added in a fixed order, so two runs give equal bits."""
+    dt = video_proj.dtype
+    if dt not in _DTYPE_CODES or any(a.dtype != dt for a in (sent_proj, w)):
+        raise TypeError('scdm_attention_bwd_core takes video_proj, sent_proj '
+                        'and w all f32 or all bf16, got '
                         f'{[a.dtype for a in (video_proj, sent_proj, w)]}')
     B, T, Dh = video_proj.shape
     N = sent_proj.shape[1]
-    for name, t in (('P', P), ('dP', dP)):
-        if tuple(t.shape) != (B, T, N) or t.dtype != torch.float32:
-            raise ValueError(f'{name} must be f32 [{B}, {T}, {N}], got '
+    for name, t, want in (('P', P, torch.float32), ('dP', dP, dt)):
+        if tuple(t.shape) != (B, T, N) or t.dtype != want:
+            raise ValueError(f'{name} must be {want} [{B}, {T}, {N}], got '
                              f'{t.dtype} {list(t.shape)}')
     args = (video_proj, sent_proj, w, P, dP)
     if all(a.device.type == 'cpu' for a in args):
@@ -373,7 +398,8 @@ def _launch_backward(args: Tuple[Tensor, ...], plan: ScdmBwdPlan
                      ) -> Tuple[Tensor, Tensor, Tensor]:
     """``scdm_bwd_kernel`` once over the checked CUDA ``args`` (video_proj,
     sent_proj, w, P, dP) with the blocks of ``plan``, and the fixed-order
-    sums of its partials."""
+    sums of its f32 partials, rounded to the inputs' dtype."""
+    dt = args[0].dtype
     B, T, Dh = args[0].shape
     N = args[1].shape[1]
     dev = args[0].device
@@ -385,26 +411,30 @@ def _launch_backward(args: Tuple[Tensor, ...], plan: ScdmBwdPlan
     err = _kernels.library().svtsg_scdm_bwd(
         *(a.data_ptr() for a in args), d_vp.data_ptr(), d_sp.data_ptr(),
         d_w.data_ptr(), B, T, N, Dh, plan.cols, plan.rows, plan.spans,
-        plan.t_len, index, _stream(dev))
+        plan.t_len, _DTYPE_CODES[dt], index, _stream(dev))
     _kernels.check(err, 'scdm_attention_bwd')
-    return d_vp, d_sp[0] if plan.spans == 1 else d_sp.sum(0), d_w.sum(0)
+    grads = (d_vp, d_sp[0] if plan.spans == 1 else d_sp.sum(0), d_w.sum(0))
+    return tuple(g.to(dt) for g in grads)
 
 
 def scdm_attention_bwd(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
                        sent_feat: Tensor, P: Optional[Tensor],
                        grad_out: Tensor
                        ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """K5's backward: the four gradients of :func:`scdm_attention_plain`.
+    """K5's backward: the four gradients of :func:`scdm_attention_plain`,
+    in the inputs' dtype (f32 or bf16; grad_out too).
 
     CPU tensors take :func:`scdm_attention_bwd_plain` (P may be None).
-    CUDA tensors take P, the forward's softmax, and run dP = dC
-    sent_feat^T and d_sent_feat = P^T dC as two cuBLAS ``bmm`` (JAX leaves
-    the whole backward to XLA), then ``scdm_bwd_kernel`` for the rest, or
-    raise. ``scdm_attention_fused_trainable.launches`` counts the kernel's
+    CUDA tensors take P, the forward's f32 softmax, and run dP = dC
+    sent_feat^T and d_sent_feat = P^T dC (P rounded to the dtype first) as
+    two cuBLAS ``bmm`` (JAX leaves the whole backward to XLA), then
+    ``scdm_bwd_kernel`` for the rest, or raise.
+    ``scdm_attention_fused_trainable.launches`` counts the kernel's
     launches."""
-    B, T, _, _, Ds = _check_inputs(video_proj, sent_proj, w, sent_feat, _F32)
-    if tuple(grad_out.shape) != (B, T, Ds) or grad_out.dtype != torch.float32:
-        raise ValueError(f'grad_out must be f32 [{B}, {T}, {Ds}], got '
+    B, T, _, _, Ds = _check_inputs(video_proj, sent_proj, w, sent_feat)
+    dt = video_proj.dtype
+    if tuple(grad_out.shape) != (B, T, Ds) or grad_out.dtype != dt:
+        raise ValueError(f'grad_out must be {dt} [{B}, {T}, {Ds}], got '
                          f'{grad_out.dtype} {list(grad_out.shape)}')
     args = (video_proj, sent_proj, w, sent_feat, grad_out)
     if all(a.device.type == 'cpu' for a in args):
@@ -414,7 +444,7 @@ def scdm_attention_bwd(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
                          'a CUDA device')
     _cuda_device('scdm_attention_bwd', (*args, P))
     dP = torch.bmm(grad_out, sent_feat.transpose(1, 2))
-    d_sf = torch.bmm(P.transpose(1, 2), grad_out)
+    d_sf = torch.bmm(P.to(dt).transpose(1, 2), grad_out)
     grads = scdm_attention_bwd_core(video_proj, sent_proj, w, P, dP)
     scdm_attention_fused_trainable.launches += 1
     return (*grads, d_sf)
@@ -422,7 +452,7 @@ def scdm_attention_bwd(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
 
 class _ScdmAttentionTrainable(torch.autograd.Function):
     """K5 (``scdm_fused.py:102-122``): the K2 forward, which also keeps
-    the softmax P [B, T, N] as a residual on a card, and
+    the f32 softmax P [B, T, N] as a residual on a card, and
     :func:`scdm_attention_bwd` as backward, the vector-Jacobian product
     that ``_scdm_bwd`` takes with ``jax.vjp`` of
     ``ops/attention.py::scdm_attention``."""
@@ -430,7 +460,7 @@ class _ScdmAttentionTrainable(torch.autograd.Function):
     @staticmethod
     def forward(ctx, video_proj, sent_proj, w, sent_feat):
         args = (video_proj, sent_proj, w, sent_feat)
-        _check_inputs(*args, _F32)
+        _check_inputs(*args)
         if all(a.device.type == 'cpu' for a in args):
             out, P = scdm_attention_plain(*args), None
         else:

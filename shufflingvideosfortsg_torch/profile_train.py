@@ -2,6 +2,7 @@
 
     python -m shufflingvideosfortsg_torch.profile_train [--batch 32] [--iters 10]
     python -m shufflingvideosfortsg_torch.profile_train --banked [--iters 3]
+    ... [--precision bf16]
 
 Builds GMD at the width of ``cfgs/charades_cd_i3d.yml`` from seeded random
 weights, with the config's optimizer (Adam, weight decay 1e-4) and dropout,
@@ -12,7 +13,15 @@ device time by kernel and by group (the port's kernels, cuBLAS products,
 the optimizer, the rest) and gives the device's busy share of the window,
 the peak device memory of the first steps, and a window with the
 operators' input shapes: the matrix products (``aten::addmm``, ``mm``,
-``bmm``) by shape, with their device time and rate against the f32 peak.
+``bmm``) by shape, with their device time and rate against the peak of
+the precision.
+
+``--precision`` (f32 by default, or bf16) is the model's compute dtype
+(the weights and Adam's state stay f32); at bf16 cuBLAS sums its bf16
+products in f32 (``utils/device.exact_bf16_products``), as the drivers
+have it. Every line names the precision; device time is grouped into the
+GEMMs (cuBLAS's and cuBLASLt's ``nvjet_*`` kernels), K3, K4's recurrence,
+K4's weight gradient, K2, K5's backward, the optimizer and the rest.
 
 ``--banked`` writes a synthetic f16 pack of 1,024 videos (T=128, D=1024)
 with ``tools/make_synth_pack.py``, uploads it as a device bank and trains
@@ -21,7 +30,8 @@ step with the assembly on the device (``train_scan_chunk`` 1); and in
 chunks of 16 (``cli._banked_train_chunks_factory``), each step a replay of
 one CUDA graph. One epoch first (builds, warm-up, capture), then
 ``--iters`` epochs timed: wall ms a step and pairs/s, and one epoch under
-``torch.profiler``: device ms a step and the device's busy share.
+``torch.profiler``: device ms a step, the device's busy share and the
+groups.
 
 Needs a CUDA device; prints one JSON line last.
 """
@@ -47,8 +57,10 @@ from .profile_eval import (BANK_VIDEOS, card_line, print_kernels,
                            profile_window, write_pack)
 from .train.state import TrainState
 from .train.steps import make_gmd_train_step, to_device
+from .utils.device import exact_bf16_products
 
-PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores, 700 W
+# H100 SXM at 700 W: f32 outside the tensor cores, bf16 dense tensor cores
+PEAK_FLOPS = {'f32': 67e12, 'bf16': 989e12}
 BANK_STEPS = 64  # the --banked epoch
 BANK_CHUNK = 16  # train_scan_chunk of its graphed mode
 
@@ -58,7 +70,7 @@ GROUPS = (('K3 lstm_fwd_kernel', ('lstm_fwd_kernel',)),
           ('K4 lstm_weight_grad_kernel', ('lstm_weight_grad_kernel',)),
           ('K2 scdm_fwd_kernel', ('scdm_fwd_kernel',)),
           ('K5 scdm_bwd_kernel', ('scdm_bwd_kernel',)),
-          ('GEMMs', ('gemm', 'Gemm', 'gemv', 'cutlass', 'sm90_xmma',
+          ('GEMMs', ('gemm', 'Gemm', 'gemv', 'cutlass', 'xmma', 'nvjet',
                      'dot_kernel')),
           ('optimizer', ('multi_tensor_apply',)))
 
@@ -197,22 +209,35 @@ def banked(params, args, dev) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / (args.iters * n)
         kernels, win_ms, busy_ms = profile_window(fn, 1)
+        groups = group_times(kernels)
         out[name] = {'wall_ms_per_step': wall,
                      'pairs_per_s': args.batch / wall * 1e3,
                      'device_ms_per_step': busy_ms / n,
-                     'busy_share': busy_ms / win_ms}
-        print(f'{name}: {wall:.4f} ms a step of {args.batch} pairs wall '
-              f'({args.batch / wall * 1e3:.1f} pairs/s), device busy '
+                     'busy_share': busy_ms / win_ms,
+                     'groups_ms_per_step': {k: v / 1e3 / n
+                                            for k, v in groups.items()}}
+        tag = f'[{args.precision}]'
+        print(f'{name} {tag}: {wall:.4f} ms a step of {args.batch} pairs '
+              f'wall ({args.batch / wall * 1e3:.1f} pairs/s), device busy '
               f'{busy_ms / n:.4f} ms a step, {100 * busy_ms / win_ms:.1f}% '
               f'of a profiled epoch of {n} steps ({win_ms:.3f} ms)')
-        print_kernels(kernels, n, busy_ms, top=6)
+        print_groups(groups, n, busy_ms, tag)
+        print_kernels(kernels, n, busy_ms, top=6, tag=f'{tag} ')
     return {'steps': n, 'chunk': BANK_CHUNK, 'bank_bytes': bank.nbytes,
             'modes': out}
+
+
+def print_groups(groups, n: int, busy_ms: float, tag: str) -> None:
+    """Each group's device ms a step and share of the busy time."""
+    for name, us in groups.items():
+        print(f'  {tag} group {name:27s} {us / 1e3 / n:9.4f} ms/step '
+              f'{100 * us / 1e3 / busy_ms:5.1f}%')
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--batch', type=int, default=32)
+    ap.add_argument('--precision', choices=('f32', 'bf16'), default='f32')
     ap.add_argument('--iters', type=int, default=None,
                     help='timed steps (default 10), with --banked epochs '
                     '(default 3)')
@@ -222,14 +247,18 @@ def main() -> None:
         raise SystemExit('profile_train needs a CUDA device')
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    exact_bf16_products()
     dev = torch.device('cuda', 0)
     params = load_config('charades_cd_i3d.yml')
+    params['precision'] = args.precision
+    tag = f'[{args.precision}]'
     if args.banked:
         args.iters = args.iters or 3
         smi = card_line()
-        print(f'card: {smi}')
+        print(f'card: {smi} {tag}')
         fields = banked(params, args, dev)
-        print(json.dumps({'card': smi, 'batch': args.batch, **fields}))
+        print(json.dumps({'card': smi, 'precision': args.precision,
+                          'batch': args.batch, **fields}))
         return
     args.iters = args.iters or 10
     step = seeded_gmd(params, dev)
@@ -253,27 +282,28 @@ def main() -> None:
     kernels, wall_ms, busy_ms = profile_window(lambda: step(batch, gen), n_prof)
     groups = group_times(kernels)
     smi = card_line()
-    print(f'card: {smi}')
-    print(f'step: {ms:.4f} ms per train step of {args.batch} pairs '
+    peak = PEAK_FLOPS[args.precision]
+    print(f'card: {smi} {tag}')
+    print(f'step {tag}: {ms:.4f} ms per train step of {args.batch} pairs '
           f'({args.batch / ms * 1e3:.1f} pairs/s, CUDA events, '
           f'{args.iters} iterations)')
-    print(f'peak device memory: {peak_gib:.3f} GiB allocated by torch')
-    print(f'profile window: {n_prof} steps, wall {wall_ms:.3f} ms, device '
-          f'busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)')
-    for name, us in groups.items():
-        print(f'  group {name:27s} {us / 1e3 / n_prof:9.4f} ms/step '
-              f'{100 * us / 1e3 / busy_ms:5.1f}%')
-    print_kernels(kernels, n_prof, busy_ms, top=20)
+    print(f'peak device memory {tag}: {peak_gib:.3f} GiB allocated by torch')
+    print(f'profile window {tag}: {n_prof} steps, wall {wall_ms:.3f} ms, '
+          f'device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%)')
+    print_groups(groups, n_prof, busy_ms, tag)
+    print_kernels(kernels, n_prof, busy_ms, top=20, tag=f'{tag} ')
     gemms = gemm_shapes(lambda: step(batch, gen), n_prof)
     total = sum(r['ms_per_step'] for r in gemms)
-    print(f'matrix products by shape ({total:.4f} ms/step; rate against '
-          f'{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32):')
+    print(f'matrix products by shape {tag} ({total:.4f} ms/step; rate '
+          f'against {peak / 1e12:.0f} TFLOP/s {args.precision}):')
     for r in gemms[:12]:
-        print(f'  {r["ms_per_step"]:9.4f} ms/step {r["per_step"]:4.0f}x '
-              f'{r["op"]:12s} {r["shapes"]} {r["tflops"]:7.2f} TFLOP/s '
-              f'({100 * r["tflops"] * 1e12 / PEAK_F32_FLOPS:4.1f}%)')
+        print(f'  {tag} {r["ms_per_step"]:9.4f} ms/step '
+              f'{r["per_step"]:4.0f}x {r["op"]:12s} {r["shapes"]} '
+              f'{r["tflops"]:7.2f} TFLOP/s '
+              f'({100 * r["tflops"] * 1e12 / peak:4.1f}%)')
     print(json.dumps({
-        'card': smi, 'batch': args.batch, 'step_ms': ms,
+        'card': smi, 'precision': args.precision, 'batch': args.batch,
+        'step_ms': ms,
         'peak_memory_gib': peak_gib,
         'window_wall_ms': wall_ms, 'window_device_busy_ms': busy_ms,
         'groups_ms_per_step': {k: v / 1e3 / n_prof for k, v in groups.items()},

@@ -9,6 +9,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from shufflingvideosfortsg_tpu import cli as jax_cli
@@ -93,7 +94,8 @@ def test_port_driver_refuses_top_k(corpus):
     its proposals, the first the top-1 span, the rest non-overlapping
     past the NMS threshold. ``precision: bf16`` runs the test driver
     (its submit against the JAX driver's: tests/test_torch_bf16.py) and
-    is refused, by name, in training only."""
+    both training drivers (against JAX's train steps:
+    tests/test_torch_bf16_train.py), which write f32 checkpoints."""
     argv, n = corpus
     params = port_cli.parse_params(
         argv + ['--alias', 'test_port_topk', '--device', 'cpu',
@@ -113,6 +115,22 @@ def test_port_driver_refuses_top_k(corpus):
             bf16, default_model='GMD'))) as f:
         results = json.load(f)['results']
     assert sum(map(len, results.values())) == n
-    for train in (port_cli.main_train, port_cli.main_train_baseline):
-        with pytest.raises(NotImplementedError, match='precision bf16'):
-            train(port_cli.parse_params(bf16, default_model='GMD'))
+    # train on the test split, from seeded weights (the .ckp is GMD's)
+    at = {k: argv[argv.index(k) + 1] for k in ('--test_data',
+                                                '--test_featpath', '--runs')}
+    cut = argv.index('--start_from')
+    train_argv = argv[:cut] + argv[cut + 2:] + [
+        '--train_data', at['--test_data'], '--val_data', at['--test_data'],
+        '--train_featpath', at['--test_featpath'],
+        '--valid_featpath', at['--test_featpath'], '--epoch', '1',
+        '--device', 'cpu', '--precision', 'bf16']
+    for name, train in (('gmd', port_cli.main_train),
+                        ('qave', port_cli.main_train_baseline)):
+        alias = f'train_port_bf16_{name}'
+        stats = train(port_cli.parse_params(train_argv + ['--alias', alias],
+                                            default_model='GMD'))
+        assert np.isfinite(stats['loss'][0])
+        saved = torch.load(os.path.join(at['--runs'], alias, 'model',
+                                        f'{alias}_00000.ckp'),
+                           weights_only=True)
+        assert saved and all(v.dtype == torch.float32 for v in saved.values())

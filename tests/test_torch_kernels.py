@@ -465,5 +465,105 @@ def test_scdm_kernel_bf16_matches_plain_on_cuda(B, T, N, Dh, Ds):
     assert got.dtype == torch.bfloat16 and torch.equal(got, again)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= K2_BF16_CUDA_SHARE * want.float().abs().max().item()
-    with pytest.raises(TypeError, match='f32 only'):
-        S._launch_forward(tuple(args), want_p=True)
+    # keeping P (K5's forward at bf16): the f32 softmax, before C's rounding
+    out, P = S._launch_forward(tuple(args), want_p=True)
+    assert torch.equal(out, got) and P.dtype == torch.float32
+    act = torch.tanh(args[0][:, :, None] + args[1][:, None])
+    want_p = torch.softmax(torch.einsum('btnh,h->btn', act.float(),
+                                        args[2].float()).bfloat16().float(),
+                           -1)
+    assert (P - want_p).abs().max().item() <= K2_BF16_CUDA_SHARE
+
+
+# K3 and K4 at bf16 (xw, W_hh, out and d_out bf16): as K1, a sum in another
+# order moves a bf16 rounding of h by one ulp now and then, and the flip is
+# carried on: out within K1_BF16_CUDA_TOL, each f32 state within one bf16
+# rounding of its largest |value| (chip_smoke.py's K3_BF16_STATE_SHARE: on
+# an NVIDIA H100 c_seq lay 3.2e-4 from the plain version at (128, 64, 256)
+# and 2.0e-3 with these larger weights); K4's dgates round to bf16 at such
+# points too: d_xw and d_w_hh within 4 bf16 ulps of their largest |value|
+# (chip_smoke.py's K4_BF16_SHARE)
+K3_BF16_STATE_CUDA_SHARE = 2.0 ** -8
+K4_BF16_CUDA_SHARE = 2.0 ** -6
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('T,B,H', [(128, 64, 256), (15, 32, 256),
+                                   (33, 5, 256), (40, 37, 128), (9, 3, 304)])
+def test_k3_k4_kernels_bf16_match_plain_on_cuda(T, B, H):
+    from shufflingvideosfortsg_torch.ops.lstm_scan import (
+        FLAT, lstm_recurrence_bwd, lstm_recurrence_bwd_plain,
+        lstm_recurrence_train, lstm_recurrence_train_plain, lstm_weight_grad,
+        lstm_weight_grad_plain)
+    bf16 = torch.bfloat16
+    xw, w_hh = (torch.from_numpy(a).cuda().to(bf16)
+                for a in _lstm_inputs(T + 3 * B, T, B, H))
+    rng = np.random.RandomState(T)
+    cot = [torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+           for shape in ((T, B, 2 * H), (2, B, H), (2, B, H))]
+    cot[0] = cot[0].to(bf16)
+    before = lstm_recurrence_train.launches, lstm_recurrence_bwd.launches
+    got = [lstm_recurrence_train(xw, w_hh) for _ in range(2)]
+    want = lstm_recurrence_train_plain(xw, w_hh)
+    args = (xw, w_hh, want[0], want[1], *cot)
+    got4 = [lstm_recurrence_bwd(*args) for _ in range(2)]
+    want4 = lstm_recurrence_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert (lstm_recurrence_train.launches, lstm_recurrence_bwd.launches) \
+        == (before[0] + 2, before[1] + 2)
+    assert [g.dtype for g in got[0]] == [bf16] + [torch.float32] * 3
+    for runs, ref in ((got, want), (got4, want4)):
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert (got[0][0].float() - want[0].float()).abs().max().item() \
+        <= K1_BF16_CUDA_TOL
+    for g, w in zip(got[0][1:], want[1:]):
+        assert (g - w).abs().max().item() \
+            <= K3_BF16_STATE_CUDA_SHARE * w.abs().max().item()
+    for g, w in zip(got4[0], want4):
+        assert g.dtype == torch.float32
+        assert (g - w).abs().max().item() \
+            <= K4_BF16_CUDA_SHARE * w.abs().max().item()
+    # the weight-gradient kernel alone on the flat bf16 layout
+    d_w = lstm_weight_grad(want[0], want4[0], bf16, FLAT)
+    ref = lstm_weight_grad_plain(want[0], want4[0], bf16, FLAT)
+    torch.cuda.synchronize()
+    assert torch.allclose(d_w, ref, rtol=1e-3, atol=1e-4)
+
+
+# K5 at bf16: dl and each term of the backward round to bf16 at JAX's
+# points, from f32 values that a sum in another order (and the kernel's
+# tanh_fwd against torch.tanh) can move across a rounding boundary; each
+# flip moves one term by a bf16 ulp: the three gradients within 4 ulps of
+# their largest |value| (chip_smoke.py's K5_BF16_SHARE)
+K5_BF16_CUDA_SHARE = 2.0 ** -6
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('B,T,N,Dh,Ds', [(64, 128, 15, 512, 512),
+                                         (8, 128, 40, 2048, 2048),
+                                         (5, 37, 17, 300, 256),
+                                         (3, 37, 17, 301, 255),
+                                         (2, 21, 70, 128, 96)])
+def test_k5_bf16_matches_plain_on_cuda(B, T, N, Dh, Ds):
+    from shufflingvideosfortsg_torch.ops.scdm_fused import (
+        scdm_attention_bwd_plain, scdm_attention_fused_trainable)
+    bf16 = torch.bfloat16
+    args = [torch.from_numpy(a).cuda().to(bf16)
+            for a in _scdm_inputs(B + N, B, T, N, Dh, Ds)]
+    g_out = torch.from_numpy(np.random.RandomState(B).randn(B, T, Ds)
+                             .astype(np.float32)).cuda().to(bf16)
+    before = S.scdm_attention_fused_trainable.launches
+    runs = []
+    for _ in range(2):
+        inputs = [a.clone().requires_grad_() for a in args]
+        out = scdm_attention_fused_trainable(*inputs)
+        runs.append((out, *torch.autograd.grad(out, inputs, g_out)))
+    want = scdm_attention_bwd_plain(*args, g_out)
+    torch.cuda.synchronize()
+    assert S.scdm_attention_fused_trainable.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert all(g.dtype == bf16 for g in runs[0])
+    for g, w in zip(runs[0][1:], want):
+        w = w.float()
+        assert (g.float() - w).abs().max().item() \
+            <= K5_BF16_CUDA_SHARE * w.abs().max().item()

@@ -17,6 +17,7 @@ import shufflingvideosfortsg_torch
 from shufflingvideosfortsg_torch import _kernels
 from shufflingvideosfortsg_torch.cli import main_test, parse_params
 from shufflingvideosfortsg_torch.ops.lstm_scan import (lstm_recurrence,
+                                                       lstm_recurrence_bwd,
                                                        lstm_recurrence_plain,
                                                        lstm_recurrence_train)
 from shufflingvideosfortsg_torch.ops.scdm_fused import (
@@ -145,9 +146,11 @@ def test_wrappers_take_the_plain_version_on_cpu_tensors():
 
 
 def test_wrappers_raise_on_bf16():
-    """K1 and K2 take bf16 throughout (``precision: bf16``, held against
-    JAX in tests/test_torch_bf16.py); they raise on bf16 mixed with f32
-    and on f16, and the training kernels (K3, K4, K5) raise on bf16."""
+    """Every flat kernel takes bf16 throughout (``precision: bf16``, held
+    against JAX in tests/test_torch_bf16.py and, for training, in
+    tests/test_torch_bf16_train.py): K1, K3 and K4 with xw, W_hh, out and
+    d_out bf16, K2 and K5 with all their inputs bf16; each raises on bf16
+    mixed with f32 and on f16."""
     rng = np.random.RandomState(1)
     xw, w = _k1_inputs(rng, dtype=torch.bfloat16)
     assert lstm_recurrence(xw, w)[0].dtype == torch.bfloat16
@@ -159,10 +162,31 @@ def test_wrappers_raise_on_bf16():
         lstm_recurrence(*_k1_inputs(rng, dtype=torch.float16))
     with pytest.raises(TypeError, match='float32'):
         scdm_attention_fused(*args[:3], args[3].float())
+    # the training kernels
+    out, c_seq, h_T, c_T = lstm_recurrence_train(xw, w)
+    assert (out.dtype, c_seq.dtype, h_T.dtype, c_T.dtype) == (
+        torch.bfloat16, torch.float32, torch.float32, torch.float32)
+    cot = (torch.ones_like(out), torch.ones_like(h_T), torch.ones_like(c_T))
+    d_xw, d_w = lstm_recurrence_bwd(xw, w, out, c_seq, *cot)
+    assert d_xw.dtype == d_w.dtype == torch.float32
     with pytest.raises(TypeError, match='float32'):
-        lstm_recurrence_train(xw, w)
+        lstm_recurrence_train(xw, w.float())
     with pytest.raises(TypeError, match='float32'):
-        scdm_attention_fused_trainable(*args)
+        lstm_recurrence_train(*_k1_inputs(rng, dtype=torch.float16))
+    with pytest.raises(TypeError, match='d_out'):
+        lstm_recurrence_bwd(xw, w, out, c_seq, cot[0].float(), *cot[1:])
+    with pytest.raises(TypeError, match='c_seq'):
+        lstm_recurrence_bwd(xw, w, out, c_seq.bfloat16(), *cot)
+    inputs = [a.clone().requires_grad_() for a in args]
+    got = scdm_attention_fused_trainable(*inputs)
+    assert got.dtype == torch.bfloat16
+    grads = torch.autograd.grad(got, inputs, torch.ones_like(got))
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+    with pytest.raises(TypeError, match='float32'):
+        scdm_attention_fused_trainable(*args[:3], args[3].float())
+    with pytest.raises(TypeError, match='float32'):
+        scdm_attention_fused_trainable(
+            *_k2_inputs(rng, dtype=torch.float16))
 
 
 def test_wrappers_never_fall_back_off_the_cpu():

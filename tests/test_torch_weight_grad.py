@@ -112,8 +112,11 @@ def test_weight_grad_refuses_what_it_does_not_take():
         L.lstm_weight_grad(out, d_xw[:, :1], torch.float32, L.FLAT)
     with pytest.raises(ValueError, match='d_xw'):
         L.lstm_weight_grad(out, d_xw.bfloat16(), torch.float32, L.FLAT)
-    with pytest.raises(TypeError, match='w_dtype'):  # the flat layout is f32
+    # the flat layout takes out and the weights in one type, f32 or bf16
+    with pytest.raises(TypeError, match='w_dtype'):
         L.lstm_weight_grad(out, d_xw, torch.bfloat16, L.FLAT)
+    assert L.lstm_weight_grad(out.bfloat16(), d_xw, torch.bfloat16,
+                              L.FLAT).dtype == torch.float32
     with pytest.raises(ValueError, match='layout'):
         L.lstm_weight_grad(out, d_xw, torch.float32, 2)
     with pytest.raises(ValueError, match='shape'):
