@@ -42,9 +42,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     'svtsg_lstm_recurrence': [_P] * 7 + [_I] * 9 + [_P],
-    'svtsg_lstm_recurrence_floor': [_P] * 5 + [_I] * 5 + [_P],
-    'svtsg_lstm_max_rows': [_I] * 4,
-    'svtsg_lstm_active_clusters': [_I] * 5,
+    'svtsg_lstm_recurrence_floor': [_P] * 5 + [_I] * 6 + [_P],
+    'svtsg_lstm_max_rows': [_I] * 5,
+    'svtsg_lstm_active_clusters': [_I] * 6,
     'svtsg_lstm_bwd': [_P] * 10 + [_I] * 9 + [_P],
     'svtsg_lstm_bwd_max_rows': [_I] * 4,
     'svtsg_lstm_bwd_active_clusters': [_I] * 5,

@@ -1,6 +1,7 @@
 // Device helpers shared by the recurrence kernels (lstm_scan.cu, lstm_bwd.cu):
-// types and rounding, the layouts, the cluster partition, the staging copies
-// and the register-tiled gate product.
+// types and rounding, the layouts, the cluster partition, the bf16
+// tensor-core fragments, the staging copies and the register-tiled gate
+// product.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -206,6 +207,61 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// --- bf16 tensor-core products (mma.sync m16n8k16, f32 accumulators) --------
+//
+// Fragments of one warp, lane = 4 * g + t (g = lane / 4, t = lane % 4):
+//   A (16 x 16, rows m, columns k): a[0] = A[g][2t, 2t+1], a[1] = A[g+8][2t,
+//     2t+1], a[2] = A[g][2t+8, 2t+9], a[3] = A[g+8][2t+8, 2t+9];
+//   B (16 x 8, rows k, columns n): b[0] = B[2t, 2t+1][g], b[1] = B[2t+8,
+//     2t+9][g];
+//   C (16 x 8): c[0], c[1] = C[g][2t, 2t+1], c[2], c[3] = C[g+8][2t, 2t+1];
+// each 32-bit register holds two bf16, the lower index in the low half.
+// Products of two bf16 values are exact in f32; the tensor core adds them
+// into the f32 accumulators in its own fixed order.
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 (16 contiguous bytes) of matrix l / 8, and r[i] receives
+// matrix i as the B or A fragment parts above take it (lane 4g + t: row g,
+// columns 2t, 2t+1).
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+// The same with each matrix transposed: lane 4g + t receives rows 2t, 2t+1
+// of column g, for operands stored with the contraction as rows.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+// c += A B for one 16 x 8 x 16 tile.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two bf16 in one register, lo in the low half.
+__device__ __forceinline__ unsigned pack_bf16(bf16 lo, bf16 hi) {
+    return (unsigned)__bfloat16_as_ushort(lo)
+           | ((unsigned)__bfloat16_as_ushort(hi) << 16);
 }
 
 // Copy nseg segments of `seg` elements from device memory (segment i starts

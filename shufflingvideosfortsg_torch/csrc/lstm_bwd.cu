@@ -76,7 +76,9 @@
 //    tiles are added through
 //    distributed shared memory in rank order, each block summing and
 //    storing 1/S of the tile: a fixed order (no atomics), no workspace, one
-//    launch.
+//    launch. Where out and the weights are bf16 (lstm_weight_grad_mma_kernel)
+//    the same grid multiplies on the bf16 tensor cores (mma.sync m16n8k16,
+//    f32 accumulators) from bf16 tiles; f32 weights keep f32 products.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -627,6 +629,220 @@ lstm_weight_grad_kernel(const XT* __restrict__ out,
     cluster_sync();  // no block leaves while another may still read it
 }
 
+// The same d_w_hh with out and the weights in bf16 (K4 at `precision:
+// bf16`, K6c with bf16 xw and w_hh), on the bf16 tensor cores: the products
+// of the f32 kernel above are of two bf16 values, exact in f32, so only
+// the order of the f32 sums changes. What bounds it then: the 9 us of
+// products at the 989 TFLOP/s bf16 peak lie below the operands' bytes
+// (bf16 out, f32 d_xw: 75 MB at T=128, B=64, H=256, 23 us at 3.35 TB/s).
+// The grid, the split of the pairs over a cluster and the rank-order sum
+// through distributed shared memory are the f32 kernel's; a stage takes
+// kWmDepth pairs, two k16 steps of mma.sync m16n8k16 (bf16 in, f32
+// accumulators). out's rows land by cp.async in a bf16 ring that the
+// tensor cores read as they are (ldmatrix.trans: the pairs are the
+// contraction); d_xw's land f32 in a ring of their own, and each thread
+// rounds the values it copied to bf16 once (round to nearest even, as
+// round_to<bf16>) into the stage's bf16 tile, double-buffered, before the
+// stage's barrier. Warp w keeps the 64 x 32 outputs rows 64 (w / 4) .. and
+// columns 32 (w % 4) .. of the tile: 4 x 4 accumulator tiles, 16 mma a
+// k16 step for 4 + 2 ldmatrix.x4. The bf16 rows are padded to 272 bytes so
+// that the 8 rows an ldmatrix reads lie in distinct banks.
+constexpr int kWmDepth = 32;             // (s, b) pairs a stage
+constexpr int kWmStages = 3;             // stages of the rings
+constexpr int kWmLd = kWgTile + 8;       // bf16 row stride of a stage
+constexpr int kWmPartLd = kWgTile + 4;   // f32 row stride of the partial tile
+constexpr int kWmStage = kWmDepth * kWmLd;        // bf16 elements
+constexpr int kWmLanding = kWmDepth * kWgTile;    // f32 elements
+// out's ring, d_xw's landing ring, the two bf16 tiles of d_xw; the partial
+// tile is written over them after the loop. Two blocks share an SM.
+constexpr int kWmSmem = kWmStages * kWmStage * 2 + kWmStages * kWmLanding * 4
+                        + 2 * kWmStage * 2;
+static_assert(kWgTile * kWmPartLd * sizeof(float) <= kWmSmem,
+              "the partial tile");
+static_assert(kThreads == 256 && kWgTile == 128, "8 warps of 64 x 32");
+
+template <int L>
+__global__ void __launch_bounds__(kThreads, 2)
+lstm_weight_grad_mma_kernel(const bf16* __restrict__ out,
+                            const float* __restrict__ d_xw,
+                            float* __restrict__ d_w_hh, int T, int B, int H,
+                            int splits) {
+    extern __shared__ float4 smem4[];
+    bf16* a_ring = reinterpret_cast<bf16*>(smem4);  // [stage][pair][kWmLd]
+    float* f_ring = reinterpret_cast<float*>(a_ring + kWmStages * kWmStage);
+    bf16* b_tile = reinterpret_cast<bf16*>(f_ring + kWmStages * kWmLanding);
+    float* part = reinterpret_cast<float*>(smem4);  // [k][kWmPartLd], after
+    const int H4 = 4 * H, KT = cdiv(H, kWgTile), CT = cdiv(H4, kWgTile);
+    const int rank = cluster_rank(), tile = blockIdx.x / splits;
+    const int d = tile / (KT * CT);
+    const int k0 = tile / CT % KT * kWgTile, c0 = tile % CT * kWgTile;
+    int q0, nq;  // this block's pairs [q0, q0 + nq)
+    slice_rows(T > 1 ? (T - 1) * B : 0, splits, rank, q0, nq);
+    const int stages = cdiv(nq, kWmDepth);
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+
+    // A thread copies the same 16-byte chunks each stage: NA of out's rows
+    // (8 bf16 each) and NB of d_xw's (4 f32 each), whose pairs its cursors
+    // follow.
+    constexpr int AC = kWgTile / 8, BC = kWgTile / 4;
+    constexpr int NA = kWmDepth * AC / kThreads, NB = kWmDepth * BC / kThreads;
+    static_assert(NA * kThreads == kWmDepth * AC
+                      && NB * kThreads == kWmDepth * BC,
+                  "whole rounds of 16-byte chunks");
+    PairCursor ca[NA], cb[NB];
+#pragma unroll
+    for (int u = 0; u < NA; ++u)
+        ca[u] = PairCursor(q0 + (tid + u * kThreads) / AC, B);
+#pragma unroll
+    for (int u = 0; u < NB; ++u)
+        cb[u] = PairCursor(q0 + (tid + u * kThreads) / BC, B);
+    // stage st (called for st = 0, 1, ... in turn) into ring slot `slot`:
+    // zero bytes past the block's pairs and past H or 4H
+    auto load_stage = [&](int st, int slot) {
+        bf16* a_s = a_ring + slot * kWmStage;
+        float* f_s = f_ring + slot * kWmLanding;
+#pragma unroll
+        for (int u = 0; u < NA; ++u) {
+            const int e = tid + u * kThreads, p = e / AC, k = k0 + e % AC * 8;
+            const bool ok = st * kWmDepth + p < nq && k < H;
+            const bf16* src =
+                ok ? out + out_row<L>(ca[u].s - 1, d, ca[u].b, T, B, H) + k
+                   : out;
+            cp_async16(a_s + p * kWmLd + e % AC * 8, src, ok);
+            ca[u].advance(kWmDepth, B);
+        }
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+            const int e = tid + u * kThreads, p = e / BC, c = c0 + e % BC * 4;
+            const bool ok = st * kWmDepth + p < nq && c < H4;
+            const float* src =
+                ok ? d_xw + xw_row<L>(cb[u].s, d, cb[u].b, T, B, H) + c
+                   : d_xw;
+            cp_async16(f_s + p * kWgTile + e % BC * 4, src, ok);
+            cb[u].advance(kWmDepth, B);
+        }
+    };
+    // the d_xw values this thread copied into landing slot `slot`, once
+    // they have landed, rounded to bf16 into the tile `buf`
+    auto round_stage = [&](int slot, int buf) {
+        const float* f_s = f_ring + slot * kWmLanding;
+        bf16* b_s = b_tile + buf * kWmStage;
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+            const int e = tid + u * kThreads, p = e / BC, c = e % BC * 4;
+            const float4 v =
+                *reinterpret_cast<const float4*>(f_s + p * kWgTile + c);
+            *reinterpret_cast<uint2*>(b_s + p * kWmLd + c) = make_uint2(
+                pack_bf16(__float2bfloat16_rn(v.x), __float2bfloat16_rn(v.y)),
+                pack_bf16(__float2bfloat16_rn(v.z), __float2bfloat16_rn(v.w)));
+        }
+    };
+
+    float acc[4][4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+    // lane l addresses row l % 8 of matrix l / 8 of an ldmatrix.x4
+    const int l8 = lane & 7, lbit3 = (lane >> 3) & 1, lbit4 = lane >> 4;
+#pragma unroll
+    for (int st = 0; st < kWmStages - 1; ++st) {
+        if (st < stages) load_stage(st, st);
+        cp_async_commit();
+    }
+    for (int st = 0; st < stages; ++st) {
+        cp_async_wait<kWmStages - 2>();  // stage st has landed ...
+        round_stage(st % kWmStages, st & 1);
+        __syncthreads();  // ... for every thread, and slot st - 1 is free
+        const int next = st + kWmStages - 1;
+        if (next < stages) load_stage(next, next % kWmStages);
+        cp_async_commit();
+        const bf16* a_s = a_ring + st % kWmStages * kWmStage;
+        const bf16* b_s = b_tile + (st & 1) * kWmStage;
+#pragma unroll
+        for (int kk = 0; kk < kWmDepth; kk += 16) {
+            // B = the pairs' d_xw [pair][c]: matrix i holds pairs kk + 8 (i
+            // & 1) .., columns 8 (i / 2) .. of two n8 tiles
+            unsigned bfr[4][2];
+#pragma unroll
+            for (int nj = 0; nj < 4; nj += 2) {
+                unsigned r[4];
+                ldmatrix_x4_trans(r, b_s + (kk + lbit3 * 8 + l8) * kWmLd + wn
+                                         + nj * 8 + lbit4 * 8);
+                bfr[nj][0] = r[0];
+                bfr[nj][1] = r[1];
+                bfr[nj + 1][0] = r[2];
+                bfr[nj + 1][1] = r[3];
+            }
+            // A = out's rows transposed, [k][pair]: matrix i holds pairs kk
+            // + 8 (i / 2) .., rows k 8 (i & 1) ..
+#pragma unroll
+            for (int mi = 0; mi < 4; ++mi) {
+                unsigned a[4];
+                ldmatrix_x4_trans(a, a_s + (kk + lbit4 * 8 + l8) * kWmLd + wm
+                                         + mi * 16 + lbit3 * 8);
+#pragma unroll
+                for (int nj = 0; nj < 4; ++nj)
+                    mma_bf16(acc[mi][nj], a, bfr[nj][0], bfr[nj][1]);
+            }
+        }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the rings are read: the partial tile takes their room
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+            float* row = part + (wm + mi * 16 + g) * kWmPartLd + wn + nj * 8
+                         + 2 * t;
+            *reinterpret_cast<float2*>(row) =
+                make_float2(acc[mi][nj][0], acc[mi][nj][1]);
+            *reinterpret_cast<float2*>(row + 8 * kWmPartLd) =
+                make_float2(acc[mi][nj][2], acc[mi][nj][3]);
+        }
+    cluster_sync();  // every partial tile of the cluster is written
+    constexpr int kRowF4 = kWgTile / 4;
+    int e0, ne;  // this block's float4 of the tile
+    slice_rows(kWgTile * kRowF4, splits, rank, e0, ne);
+    for (int e = e0 + tid; e < e0 + ne; e += kThreads) {
+        const int k = k0 + e / kRowF4, c = c0 + e % kRowF4 * 4;
+        if (k >= H || c >= H4) continue;
+        const int at = e / kRowF4 * kWmPartLd + e % kRowF4 * 4;
+        float4 v = *reinterpret_cast<const float4*>(remote_shared(part, 0) + at);
+        for (int j = 1; j < splits; ++j) {  // rank order
+            const float4 w =
+                *reinterpret_cast<const float4*>(remote_shared(part, j) + at);
+            v.x += w.x;
+            v.y += w.y;
+            v.z += w.z;
+            v.w += w.w;
+        }
+        *reinterpret_cast<float4*>(d_w_hh + ((size_t)d * H + k) * H4 + c) = v;
+    }
+    cluster_sync();  // no block leaves while another may still read it
+}
+
+// The weight-gradient kernel of an instantiation and its shared memory:
+// the tensor-core one where out and the weights are bf16, else the f32
+// products (which TF32 would break for f32 weights).
+template <int L, typename XT, typename WT>
+struct WeightGrad {
+    static constexpr bool kMma =
+        std::is_same<XT, bf16>::value && std::is_same<WT, bf16>::value;
+    static constexpr int kSmem = kMma ? kWmSmem : kWgSmem;
+    static auto kernel() {
+        if constexpr (kMma)
+            return lstm_weight_grad_mma_kernel<L>;
+        else
+            return lstm_weight_grad_kernel<L, XT, WT>;
+    }
+};
+
 struct BwdArgs {
     const void* xw;
     const void* w_hh;
@@ -654,12 +870,13 @@ cudaError_t launch_weight_grad(const void* out, const float* d_xw,
                                cudaStream_t st) {
     if (H % kClusterBlocks || splits < 1 || splits > kWgMaxSplits)
         return cudaErrorInvalidValue;
-    auto kernel = lstm_weight_grad_kernel<L, XT, WT>;
+    using WG = WeightGrad<L, XT, WT>;
+    auto kernel = WG::kernel();
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG::kSmem);
     if (err != cudaSuccess) return err;
     const int tiles = 2 * cdiv(H, kWgTile) * cdiv(4 * H, kWgTile);
-    const ClusterLaunch cl(tiles, splits, kWgSmem, st);
+    const ClusterLaunch cl(tiles, splits, WG::kSmem, st);
     err = cudaLaunchKernelEx(&cl.cfg, kernel, static_cast<const XT*>(out),
                              d_xw, d_w_hh, T, B, H, splits);
     if (err != cudaSuccess) return err;
@@ -797,10 +1014,9 @@ int svtsg_lstm_weight_grad_active_clusters(int splits, int layout, int x_dtype,
     int n = 0;
     const cudaError_t err =
         dispatch(layout, x_dtype, w_dtype, [&](auto l, auto x, auto w) {
-            n = active_clusters(
-                lstm_weight_grad_kernel<decltype(l)::value, decltype(x),
-                                        decltype(w)>,
-                kWgSmem, device, splits);
+            using WG = WeightGrad<decltype(l)::value, decltype(x),
+                                  decltype(w)>;
+            n = active_clusters(WG::kernel(), WG::kSmem, device, splits);
             return n < 0 ? (cudaError_t)-n : cudaSuccess;
         });
     return err != cudaSuccess ? -(int)err : n;

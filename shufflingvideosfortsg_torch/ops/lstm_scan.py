@@ -30,7 +30,9 @@ bounds a slice, not the batch. Each block keeps its slice of W_hh in shared
 memory (registers at H=256) where that leaves room for a row; from H=304 in
 f32 it reads the slice from device memory instead, laid out there once a
 launch (:func:`_cluster_plan` picks; 23 forward and 15 backward rows a
-cluster at H=512). The backward's weight gradient is a second kernel of
+cluster at H=512). With bf16 W_hh at H=256 the forward multiplies on the
+bf16 tensor cores and exchanges h in bf16 (127 rows a cluster with bf16
+xw). The backward's weight gradient is a second kernel of
 the same launch group, outside the step loop, whose plain version is
 :func:`lstm_weight_grad_plain`: a product over the (T-1)*B (step, row)
 pairs, split over them inside a thread-block cluster. A cluster owns one
@@ -38,7 +40,8 @@ pairs, split over them inside a thread-block cluster. A cluster owns one
 pairs (:func:`_weight_grad_plan` picks S from the clusters the card holds
 at once, so that the grid fills whole waves), and the S partial tiles are
 added through distributed shared memory in rank order: a fixed order, one
-launch. ``launches`` counts launches: one a call.
+launch; with bf16 out and weights the products run on the bf16 tensor
+cores. ``launches`` counts launches: one a call.
 """
 
 from __future__ import annotations
@@ -60,7 +63,6 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # the flat kernels K1, K3 and K4 take xw and w_hh both f32 or both bf16
-_F32 = (torch.float32,)
 _FLAT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -121,10 +123,12 @@ def _device_index(dev: torch.device) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _cluster_plan(name: str, kernel: str, H: int, x_bytes: int,
-                  device: int) -> Tuple[int, int, bool]:
+                  device: int, w_bytes: int = 4) -> Tuple[int, int, bool]:
     """What the card ``device`` gives one recurrence kernel (``kernel``:
     ``svtsg_lstm`` or ``svtsg_lstm_bwd``) at width H with activations of
-    ``x_bytes`` bytes, asked of the C side once: (the most batch rows one
+    ``x_bytes`` bytes (and, for the forward, W_hh of ``w_bytes`` bytes:
+    at H=256 bf16 W_hh runs the tensor-core kernel, whose rows take other
+    shared memory), asked of the C side once: (the most batch rows one
     cluster holds, from the shared-memory formula; the row slices a
     direction that fill one wave, half the clusters the card holds at once
     at that many rows, ``cudaOccupancyMaxActiveClusters``; whether the
@@ -134,17 +138,18 @@ def _cluster_plan(name: str, kernel: str, H: int, x_bytes: int,
     Raises when not even one row fits or the card holds no cluster."""
     lib = _kernels.library()
     max_rows = getattr(lib, f'{kernel}_max_rows')
+    sizes = (x_bytes, w_bytes) if kernel == 'svtsg_lstm' else (x_bytes,)
     w_global = False
-    cap = max_rows(H, _kernels.MAX_SMEM_BYTES, x_bytes, 0)
+    cap = max_rows(H, _kernels.MAX_SMEM_BYTES, *sizes, 0)
     if cap < 1:
         w_global = True
-        cap = max_rows(H, _kernels.MAX_SMEM_BYTES, x_bytes, 1)
+        cap = max_rows(H, _kernels.MAX_SMEM_BYTES, *sizes, 1)
     if cap < 1:
         raise ValueError(f'{name}: at H={H} one batch row needs more shared '
                          f'memory than the {_kernels.MAX_SMEM_BYTES} bytes a '
                          'block may use')
     clusters = getattr(lib, f'{kernel}_active_clusters')(
-        H, cap, x_bytes, int(w_global), device)
+        H, cap, *sizes, int(w_global), device)
     if clusters < 0:
         _kernels.check(-clusters, f'{name}: cudaOccupancyMaxActiveClusters')
     if clusters < 1:
@@ -215,7 +220,8 @@ def _launch_forward(name: str, xw: Tensor, w_hh: Tensor, layout: int,
     lib = _kernels.library()
     cap, a_wave, w_global = _cluster_plan(name, 'svtsg_lstm', H,
                                           xw.dtype.itemsize,
-                                          _device_index(dev))
+                                          _device_index(dev),
+                                          w_hh.dtype.itemsize)
     slices = _row_slices(B, cap, a_wave)
     f32 = dict(device=dev, dtype=torch.float32)
     out = torch.empty(out_shape, device=dev, dtype=xw.dtype)
@@ -285,8 +291,9 @@ def lstm_weight_grad_plain(out: Tensor, d_xw: Tensor, w_dtype: torch.dtype,
     return torch.stack([torch.einsum('sbk,sbc->kc', a, b) for a, b in pairs])
 
 
-# the weight-gradient kernel's tiling (csrc/lstm_bwd.cu: kWgTile, kWgDepth,
-# kWgMaxSplits) and the fewest (step, row) pairs a split takes
+# the weight-gradient kernels' tiling (csrc/lstm_bwd.cu: kWgTile, kWgDepth,
+# kWgMaxSplits) and the fewest (step, row) pairs a split takes: two stages
+# of the f32 kernel, one of the tensor-core kernel (kWmDepth = 32)
 WG_TILE, WG_DEPTH, WG_MAX_SPLITS = 128, 16, 8
 WG_MIN_PAIRS = 2 * WG_DEPTH
 
@@ -394,26 +401,28 @@ lstm_weight_grad.launches = 0
 
 def lstm_exchange_floor(xw_flat: Tensor, w_hh: Tensor) -> Tensor:
     """The latency floor of the forward recurrence, for measurements only:
-    K1's kernel with the product left out, so that T dependent steps of
+    K1's kernel at xw's dtype (f32, or bf16: the tensor-core kernel at
+    H=256) with the product left out, so that T dependent steps of
     prefetch, gate math, stores, exchange of h and cluster barrier remain.
     Same inputs as :func:`lstm_recurrence`, on a card only; returns ``out``
     (that of a layer whose w_hh is zero)."""
-    T, B, H = _check_inputs(xw_flat, w_hh, _F32)
+    T, B, H = _check_inputs(xw_flat, w_hh)
     dev = _cuda_checks('lstm_exchange_floor', (xw_flat, w_hh), H)
-    cap, a_wave, w_global = _cluster_plan('lstm_exchange_floor', 'svtsg_lstm',
-                                          H, 4, _device_index(dev))
+    cap, a_wave, w_global = _cluster_plan(
+        'lstm_exchange_floor', 'svtsg_lstm', H, xw_flat.dtype.itemsize,
+        _device_index(dev), w_hh.dtype.itemsize)
     if w_global:
         raise ValueError(f'lstm_exchange_floor: at H={H} the W slices do not '
                          'fit shared memory; the floor is measured where '
                          'they do')
     slices = _row_slices(B, cap, a_wave)
     f32 = dict(device=dev, dtype=torch.float32)
-    out = torch.empty(T, B, 2 * H, **f32)
+    out = torch.empty(T, B, 2 * H, device=dev, dtype=xw_flat.dtype)
     h_T, c_T = torch.empty(2, B, H, **f32), torch.empty(2, B, H, **f32)
     err = _kernels.library().svtsg_lstm_recurrence_floor(
         xw_flat.data_ptr(), w_hh.data_ptr(), out.data_ptr(), h_T.data_ptr(),
-        c_T.data_ptr(), T, B, H, len(slices), _device_index(dev),
-        _stream(dev))
+        c_T.data_ptr(), T, B, H, len(slices), _DTYPE_CODES[xw_flat.dtype],
+        _device_index(dev), _stream(dev))
     _kernels.check(err, 'lstm_exchange_floor')
     return out
 

@@ -6,11 +6,14 @@ attention's backward in bf16) are held against the Pallas kernels run with
 ``interpret=True`` and against ``jax.vjp`` of the JAX functions; autograd
 of the dense layer and LayerNorm against ``jax.vjp`` of ``TDense`` and
 ``LayerNorm``; a GMD and a baseline train step at bf16 against JAX's, with
-the model's Pallas kernels interpreted (``tpu_like`` below: the training
-build's ``lstm_flat_fused`` and ``scdm_attention_fused_trainable``, H=128,
-batches a multiple of 8, as in tests/test_torch_bf16.py); and
-``main_train --precision bf16`` on the CPU, whose checkpoint the port's
-``main_test --precision bf16`` reads back.
+the model's Pallas kernels interpreted (``patch_tpu_like`` in
+tests/bf16_train_refs.py: the training build's ``lstm_flat_fused`` and
+``scdm_attention_fused_trainable``, H=128, batches a multiple of 8, as in
+tests/test_torch_bf16.py); and ``main_train --precision bf16`` on the
+CPU, whose checkpoint the port's ``main_test --precision bf16`` reads
+back. Every JAX reference that runs a Pallas kernel in interpret mode is
+computed once, in a child process with a deadline
+(tests/bf16_train_refs.py, fixture ``jax_refs``).
 
 Rounding points of JAX's bf16 VJPs, as their jaxprs write them and XLA's
 CPU backend computes them (measured bit for bit):
@@ -41,26 +44,13 @@ import numpy as np
 import pytest
 import torch
 
+import bf16_train_refs
 import chip_smoke
-import shufflingvideosfortsg_tpu.ops.pallas.lstm_scan as jax_lstm_scan
-import shufflingvideosfortsg_tpu.ops.pallas.scdm_fused as jax_scdm_fused
-import shufflingvideosfortsg_tpu.ops.rnn as jax_rnn
-from shufflingvideosfortsg_tpu import cli as jax_cli
-from shufflingvideosfortsg_tpu.models import build_model as jax_build_model
+from bf16_train_refs import BF16, LR, LSTM_SHAPES, VJP_SHAPES
 from shufflingvideosfortsg_tpu.models.components import LayerNorm, TDense
-from shufflingvideosfortsg_tpu.ops import augment_device as jax_aug
-from shufflingvideosfortsg_tpu.ops import losses as jax_losses
 from shufflingvideosfortsg_tpu.ops.attention import scdm_attention
-from shufflingvideosfortsg_tpu.ops.pallas.lstm_scan import (
-    lstm_scan_pallas_bwd_flat, lstm_scan_pallas_flat,
-    lstm_scan_pallas_train_flat)
-from shufflingvideosfortsg_tpu.ops.pallas.scdm_fused import \
-    scdm_attention_fused
 from shufflingvideosfortsg_tpu.train import state as jax_state
-from shufflingvideosfortsg_tpu.train.steps import \
-    make_gmd_train_step as jax_gmd_step
 from shufflingvideosfortsg_torch import cli as port_cli
-from shufflingvideosfortsg_torch.config import load_config
 from shufflingvideosfortsg_torch.models.build import build_model
 from shufflingvideosfortsg_torch.ops import lstm_scan as L
 from shufflingvideosfortsg_torch.ops import scdm_fused as S
@@ -69,11 +59,9 @@ from shufflingvideosfortsg_torch.train.state import TrainState
 from shufflingvideosfortsg_torch.train.steps import (
     HOST_PAIR_KEYS, STEP_KEYS, make_baseline_train_step, make_gmd_train_step)
 from shufflingvideosfortsg_torch.utils.interop import state_dict_from_jax
-from test_torch_bf16 import _WidenedEinsum, _no_excess
-from test_torch_train import _spans
+from test_torch_bf16 import _no_excess
 from torch_one_thread import one_torch_thread  # noqa: F401
 
-BF16 = jnp.bfloat16
 ULP = 2.0 ** -8  # one bf16 rounding, relative
 # K3: the plain version and the Pallas kernel round at the same points (h
 # f32, rounded to bf16 for the product; out rounded; c f32) and differ
@@ -102,9 +90,6 @@ K5_SHARE = 2.0 ** -5
 # JAX's bf16 gradient lies)
 LOSS_RTOL = 2.0 ** -6
 GRAD_REL_L2 = 2.0 ** -5
-LR = 1e-3
-
-H, D, W, B, T, N = 128, 24, 300, 8, 10, 5
 
 
 def _t(a, dtype=torch.bfloat16) -> torch.Tensor:
@@ -124,64 +109,33 @@ def _share(got: torch.Tensor, want) -> float:
                  / np.abs(want).max())
 
 
-@pytest.fixture
-def tpu_like(monkeypatch):
-    """The JAX training build's Pallas kernels, interpreted where the
-    model calls them (at call time: the BiLSTM imports ``lstm_flat_fused``,
-    whose forward and backward call the train kernels, and the attention
-    ``scdm_attention_fused_trainable``, whose forward calls K2); the
-    BiLSTM's bf16 einsum widened (tests/test_torch_bf16.py)."""
-    _patch_tpu_like(monkeypatch)
-
-
-def _patch_tpu_like(m):
-    m.setattr(jax_rnn, 'jnp', _WidenedEinsum())
-    for name, fn in (('lstm_scan_pallas_flat', lstm_scan_pallas_flat),
-                     ('lstm_scan_pallas_train_flat',
-                      lstm_scan_pallas_train_flat),
-                     ('lstm_scan_pallas_bwd_flat', lstm_scan_pallas_bwd_flat)):
-        m.setattr(jax_lstm_scan, name, functools.partial(fn, interpret=True))
-    m.setattr(jax_scdm_fused, 'scdm_attention_fused',
-              functools.partial(scdm_attention_fused, interpret=True))
+@pytest.fixture(scope='module')
+def jax_refs(tmp_path_factory):
+    """Every reference of this module that runs the JAX package's Pallas
+    kernels in interpret mode (K3, K4, ``jax.vjp`` of ``lstm_flat_fused``,
+    the GMD and baseline train steps), computed once in a child process
+    with a deadline (``tests/bf16_train_refs.py``): interpret mode can
+    deadlock inside JAX, and a child that hangs is killed and started
+    afresh instead of holding the test run."""
+    return bf16_train_refs.run_in_child(
+        tmp_path_factory.mktemp('bf16_train_refs'))
 
 
 # --- K3, K4 and LSTMRecurrence ------------------------------------------------
 
-LSTM_SHAPES = [(12, 8, 16), (7, 3, 8), (10, 8, 128)]
-
-
-def _lstm_case(T_, B_, H_):
-    rng = np.random.RandomState(T_ * 10 + B_)
-    f32 = np.float32
-    xw = jnp.asarray((rng.randn(T_, B_, 8 * H_) * 0.5).astype(f32)).astype(BF16)
-    w = jnp.asarray((rng.randn(2, H_, 4 * H_) / math.sqrt(H_)).astype(f32)
-                    ).astype(BF16)
-    d_out = jnp.asarray(rng.randn(T_, B_, 2 * H_).astype(f32)).astype(BF16)
-    d_h = jnp.asarray(rng.randn(2, B_, H_).astype(f32))
-    d_c = jnp.asarray(rng.randn(2, B_, H_).astype(f32))
-    return xw, w, d_out, d_h, d_c
-
-
 @pytest.fixture(scope='module')
-def lstm_refs():
-    """Per shape: the inputs and the Pallas train kernels' results
-    (interpreted, XLA's excess precision off), computed once."""
-    refs = {}
-    for shape in LSTM_SHAPES:
-        xw, w, d_out, d_h, d_c = _lstm_case(*shape)
-        fwd = _no_excess(lambda x, v: lstm_scan_pallas_train_flat(
-            x, v, interpret=True), xw, w)
-        bwd = _no_excess(lambda *a: lstm_scan_pallas_bwd_flat(
-            *a, interpret=True), xw, w, fwd[0], fwd[1], d_out, d_h, d_c)
-        refs[shape] = (xw, w, d_out, d_h, d_c), fwd, bwd
-    return refs
+def lstm_refs(jax_refs):
+    """Per shape: the inputs, the Pallas train kernels' results
+    (interpreted, XLA's excess precision off) and, for VJP_SHAPES,
+    ``jax.vjp`` of ``lstm_flat_fused`` over them."""
+    return jax_refs['lstm']
 
 
 @pytest.mark.parametrize('shape', LSTM_SHAPES)
 def test_k3_plain_bf16_matches_pallas_train_kernel(shape, lstm_refs):
     """out within K3_OUT_TOL, c_seq, h_T and c_T within K3_STATE_TOL; the
     f32 recurrence's states lie farther."""
-    (xw, w, *_), want, _ = lstm_refs[shape]
+    (xw, w, *_), want, _, _ = lstm_refs[shape]
     got = L.lstm_recurrence_train(_t(xw), _t(w))  # CPU: the plain version
     assert got[0].dtype == torch.bfloat16 and want[0].dtype == BF16
     assert all(g.dtype == torch.float32 for g in got[1:])
@@ -198,7 +152,7 @@ def test_k4_plain_bf16_matches_pallas_bwd_kernel(shape, lstm_refs):
     """On the Pallas forward's out and c_seq: d_xw and d_w_hh within
     K4_SHARE of each one's largest |value|, and the weight gradient alone
     on the flat bf16 layout against the kernel's d_w_hh."""
-    (xw, w, d_out, d_h, d_c), fwd, want = lstm_refs[shape]
+    (xw, w, d_out, d_h, d_c), fwd, want, _ = lstm_refs[shape]
     args = (_t(xw), _t(w), _t(fwd[0]), _t(fwd[1], torch.float32),
             _t(d_out), _t(d_h, torch.float32), _t(d_c, torch.float32))
     got = L.lstm_recurrence_bwd(*args)
@@ -209,19 +163,13 @@ def test_k4_plain_bf16_matches_pallas_bwd_kernel(shape, lstm_refs):
     assert _share(d_w, want[1]) <= K4_SHARE
 
 
-@pytest.mark.parametrize('shape', LSTM_SHAPES[1:])
-def test_lstm_recurrence_bf16_matches_lstm_flat_fused_vjp(shape, tpu_like):
+@pytest.mark.parametrize('shape', VJP_SHAPES)
+def test_lstm_recurrence_bf16_matches_lstm_flat_fused_vjp(shape, lstm_refs):
     """Autograd of ``LSTMRecurrence`` at bf16 against ``jax.vjp`` of
     ``lstm_flat_fused`` (the custom VJP over the interpreted kernels):
     the outputs as K3's, the cotangents of xw and w_hh in bf16 within
     K4_SHARE of their largest |value|."""
-    xw, w, d_out, d_h, d_c = _lstm_case(*shape)
-
-    def vjp(x, v, *cot):
-        outs, fn = jax.vjp(jax_lstm_scan.lstm_flat_fused, x, v)
-        return outs, fn(cot)
-
-    want, want_grads = _no_excess(vjp, xw, w, d_out, d_h, d_c)
+    (xw, w, d_out, d_h, d_c), _, _, (want, want_grads) = lstm_refs[shape]
     x, v = _t(xw).requires_grad_(), _t(w).requires_grad_()
     got = L.lstm_recurrence(x, v)
     grads = torch.autograd.grad(got, (x, v), (_t(d_out), _t(d_h, torch.float32),
@@ -341,22 +289,6 @@ def test_dense_and_layer_norm_gradients_match_jax_vjp():
 
 # --- the train steps ----------------------------------------------------------
 
-def _params(kind: str, precision: str = 'bf16', **overrides):
-    """A small config at H=128 (the Pallas kernels' width) and batches of
-    8, dropout off, the loader's pseudo videos (GMD), JAX's fused kernels
-    on in the training build."""
-    params = load_config('charades_cd_i3d.yml')
-    params.update(video_feature_dim=D, sent_embedding_dim=W,
-                  sent_rnn_hiddendim=H, video_rnn_hiddendim=H,
-                  mlp_hidden_dim=8, m_pred_hidden=16, video_len=T,
-                  sent_len=N, lr=LR, dropout=0.0, disc_dropout=0.0,
-                  on_device_aug=False, grad_clip_max=0.5,
-                  precision=precision, fused_inference=precision == 'bf16',
-                  model='GMD' if kind == 'gmd' else 'QAVE')
-    params.update(overrides)
-    return params
-
-
 def _rel_l2(a: np.ndarray, b: np.ndarray) -> float:
     nb = np.linalg.norm(b)
     return float(np.linalg.norm(a - b) / nb) if nb else float(
@@ -386,83 +318,13 @@ def _hold_grads(got, want, want_f32):
     return seen
 
 
-def _jax_grads(params, kind, weights, jb, pseudo):
-    """JAX's loss terms and gradients at ``params``' precision (its train
-    build, the kernels interpreted at bf16), compiled with XLA's excess
-    precision off: GMD's ``loss_fn`` of ``make_gmd_train_step``, the
-    baseline's loss as its train step takes it (``train/steps.py:367``)."""
-    model = jax_build_model(params, kind)
-    if kind == 'gmd':
-        loss_fn = jax_gmd_step(model, params).loss_fn
-    else:
-        def loss_fn(p, batch, _pseudo, key):
-            out = model.apply({'params': p}, batch['video_feat'],
-                              batch['sent_feat'], batch['video_mask'],
-                              batch['sent_mask'], deterministic=False,
-                              rngs={'dropout': key})
-            loss = jax_losses.span_ground_loss(
-                out['start_prob'], out['end_prob'], batch['framestps'])
-            return loss, {'loss': loss}
-    (_, aux), grads = _no_excess(jax.value_and_grad(loss_fn, has_aux=True),
-                                 weights, jb, pseudo or {},
-                                 jax.random.PRNGKey(0))
-    return aux, grads
-
-
 @pytest.fixture(scope='module')
-def step_refs():
-    """Per kind: the shared weights, the batch and JAX's bf16 and f32 loss
-    terms and gradients, computed once (the bf16 ones with the Pallas
-    kernels interpreted)."""
-    mp = pytest.MonkeyPatch()
-    refs = {}
-    try:
-        for kind in ('gmd', 'baseline'):
-            params = _params(kind)
-            model = jax_build_model(params, kind)
-            weights = jax.tree.map(np.asarray, jax_cli.init_model_params(
-                model, params, jax.random.PRNGKey(5), kind))
-            b = _batch(seed=3 if kind == 'gmd' else 4)
-            jb = {k: jnp.asarray(v) for k, v in b.items()}
-            pseudo = {k: jnp.asarray(b['pseudo_' + k]) for k in
-                      ('video_feat', 'framestps', 'video_mask',
-                       'temporal_labels', 'fore_masks', 'back_masks')
-                      } if kind == 'gmd' else None
-            f32 = _jax_grads(_params(kind, 'f32'), kind, weights, jb, pseudo)
-            with mp.context() as m:
-                _patch_tpu_like(m)
-                bf16 = _jax_grads(params, kind, weights, jb, pseudo)
-            refs[kind] = dict(params=params, weights=weights, batch=b,
-                              bf16=bf16, f32=f32)
-    finally:
-        mp.undo()
-    return refs
-
-
-def _batch(seed: int):
-    """A host-made pair batch of B rows (the JAX augmentation at a fixed
-    key), as tests/test_torch_train.py makes it."""
-    rng = np.random.RandomState(seed)
-    framestps, nfeats = _spans(rng, B, T)
-    framestps[:, 1] = np.minimum(framestps[:, 1], nfeats - 1)
-    video = rng.randn(B, T, D).astype(np.float32)
-    video[np.arange(T)[None] >= nfeats[:, None]] = 0.0
-    raw = jax_aug.device_masks(*map(jnp.asarray, (framestps[:, 0],
-                                                  framestps[:, 1], nfeats)), T)
-    pfeat, pfs, pm = jax_aug.gt_translate_batch(
-        jax.random.PRNGKey(seed), jnp.asarray(video), jnp.asarray(framestps),
-        jnp.asarray(nfeats))
-    batch = {'video_feat': video,
-             'sent_feat': rng.randn(B, N, W).astype(np.float32),
-             'sent_mask': np.ones((B, N), np.int32),
-             'framestps': framestps,
-             'timestps': framestps.astype(np.float32), 'nfeats': nfeats,
-             'duration': np.full(B, 30.0, np.float32),
-             'pseudo_video_feat': pfeat, 'pseudo_framestps': pfs,
-             **{k: raw[k] for k in ('video_mask', 'temporal_labels',
-                                    'fore_masks', 'back_masks')},
-             **{'pseudo_' + k: v for k, v in pm.items()}}
-    return {k: np.asarray(v) for k, v in batch.items()}
+def step_refs(jax_refs):
+    """Per kind: the config (H=128, batches of 8, dropout off, JAX's fused
+    kernels on), the shared weights, the batch and JAX's bf16 and f32 loss
+    terms and gradients (the bf16 ones with the Pallas kernels
+    interpreted)."""
+    return jax_refs['steps']
 
 
 @pytest.mark.parametrize('kind', ['gmd', 'baseline'])

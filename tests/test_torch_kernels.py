@@ -112,11 +112,33 @@ def test_lstm_kernel_matches_plain_on_cuda(T, B, H):
 K1_BF16_CUDA_TOL = 4e-3
 
 
+# at H=256 the tensor-core kernel, at 1, 5, 9, 17 and 24 rows a cluster on
+# an H100 (ragged against its 16-row chunks; B=1 and B=37 among them)
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize('T,B,H', [(128, 32, 256), (15, 32, 256), (1, 3, 256),
                                    (33, 5, 64), (9, 2, 8), (64, 16, 512),
-                                   (20, 3, 304)])
+                                   (20, 3, 304), (12, 1, 256), (20, 37, 256),
+                                   (20, 63, 256), (20, 119, 256),
+                                   (20, 168, 256)])
 def test_lstm_kernel_bf16_matches_plain_on_cuda(T, B, H):
+    _check_bf16_kernel(T, B, H)
+
+
+@pytest.mark.requires_cuda
+def test_lstm_kernel_bf16_at_the_most_rows_a_cluster_holds_on_cuda():
+    """A batch that gives every cluster of a wave the most rows one holds
+    (the tensor-core kernel's shared memory: 127 at bf16 xw)."""
+    from shufflingvideosfortsg_torch.ops import lstm_scan as L
+    cap, a_wave, _ = L._cluster_plan('test', 'svtsg_lstm', 256, 2,
+                                     torch.cuda.current_device(), 2)
+    B = cap * a_wave
+    assert max(b1 - b0 for b0, b1 in L._row_slices(B, cap, a_wave)) == cap
+    _check_bf16_kernel(6, B, 256)
+
+
+def _check_bf16_kernel(T, B, H):
+    """K1 with bf16 xw and W_hh against its plain version within
+    K1_BF16_CUDA_TOL, two launches bit for bit."""
     xw, w_hh = (torch.from_numpy(a).cuda().bfloat16()
                 for a in _lstm_inputs(T + B, T, B, H))
     before = lstm_recurrence.launches

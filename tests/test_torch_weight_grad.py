@@ -126,10 +126,53 @@ def test_weight_grad_refuses_what_it_does_not_take():
                            L.FLAT)
 
 
-def test_exchange_floor_runs_on_a_card_only():
-    xw, w_hh = torch.zeros(2, 1, 64), torch.zeros(2, 8, 32)
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_exchange_floor_runs_on_a_card_only(dtype):
+    """The floor takes K1's inputs, f32 or bf16, and runs on a card only."""
+    xw, w_hh = torch.zeros(2, 1, 64, dtype=dtype), torch.zeros(2, 8, 32,
+                                                               dtype=dtype)
     with pytest.raises(ValueError, match='CUDA'):
         L.lstm_exchange_floor(xw, w_hh)
+    with pytest.raises(TypeError, match='w_hh'):
+        L.lstm_exchange_floor(xw, w_hh.double())
+
+
+class _FakeLibrary:
+    """The C side's row and cluster queries of the recurrences, recorded:
+    127 rows a cluster, 15 clusters at once."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def query(*args):
+            self.calls.append((name, args))
+            return 127 if name.endswith('_max_rows') else 15
+        return query
+
+
+@pytest.mark.parametrize('kernel,x_bytes,w_bytes,sizes', [
+    ('svtsg_lstm', 2, 2, (2, 2)), ('svtsg_lstm', 4, 4, (4, 4)),
+    ('svtsg_lstm', 2, 4, (2, 4)), ('svtsg_lstm', 4, 2, (4, 2)),
+    ('svtsg_lstm_bwd', 2, 2, (2,)), ('svtsg_lstm_bwd', 4, 4, (4,))])
+def test_cluster_plan_asks_the_forward_with_the_weights_bytes(
+        monkeypatch, kernel, x_bytes, w_bytes, sizes):
+    """The forward's rows a cluster depend on W_hh's dtype (at H=256 bf16
+    W_hh runs the tensor-core kernel, whose rows take other shared memory),
+    so the plan passes its bytes to the forward's C queries; the
+    backward's take xw's alone. Half the clusters the card holds run the
+    slices of one direction."""
+    fake = _FakeLibrary()
+    monkeypatch.setattr(L._kernels, 'library', lambda: fake)
+    L._cluster_plan.cache_clear()
+    try:
+        plan = L._cluster_plan('test', kernel, 256, x_bytes, 0, w_bytes)
+    finally:
+        L._cluster_plan.cache_clear()
+    assert plan == (127, 7, False)
+    assert fake.calls == [
+        (kernel + '_max_rows', (256, L._kernels.MAX_SMEM_BYTES, *sizes, 0)),
+        (kernel + '_active_clusters', (256, 127, *sizes, 0, 0))]
 
 
 # --- the row slices -------------------------------------------------------------
@@ -303,7 +346,9 @@ def test_weight_grad_bound_counts_the_pairs_the_kernel_reads(
 
 # --- on the card ---------------------------------------------------------------
 
+# out and the weights bf16 (flat or stacked): the tensor-core kernel
 ALL_COMBOS = [(L.FLAT, torch.float32, torch.float32),
+              (L.FLAT, torch.bfloat16, torch.bfloat16),
               (L.STACKED, torch.float32, torch.float32),
               (L.STACKED, torch.float32, torch.bfloat16),
               (L.STACKED, torch.bfloat16, torch.float32),
@@ -322,13 +367,13 @@ def _cuda_operands(layout, x_dtype, T, B, H):
 
 
 # the main path's shapes (video and sentence layers, B=128 chunks, the
-# [wide] width), H=128, T=2, T=1, and P = 51 and 160 pairs, which are not
-# a multiple of a stage's 16
+# [wide] width), H=128, T=2, T=1, and P = 51, 160 and 952 pairs, which are
+# not a multiple of a stage's 16 or 32
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize('T,B,H', [(128, 64, 256), (33, 5, 256), (9, 2, 8),
                                    (1, 3, 8), (128, 128, 256), (15, 32, 256),
                                    (40, 37, 128), (128, 8, 512), (2, 1, 8),
-                                   (18, 3, 64)])
+                                   (18, 3, 64), (2, 1, 256), (9, 119, 256)])
 @pytest.mark.parametrize('layout,x_dtype,w_dtype', ALL_COMBOS)
 def test_weight_grad_kernel_matches_plain_on_cuda(layout, x_dtype, w_dtype,
                                                   T, B, H):
