@@ -46,8 +46,9 @@ _SIGNATURES = {
     'svtsg_lstm_max_rows': [_I] * 5,
     'svtsg_lstm_active_clusters': [_I] * 6,
     'svtsg_lstm_bwd': [_P] * 10 + [_I] * 9 + [_P],
-    'svtsg_lstm_bwd_max_rows': [_I] * 4,
-    'svtsg_lstm_bwd_active_clusters': [_I] * 5,
+    'svtsg_lstm_bwd_floor': [_P] * 8 + [_I] * 5 + [_P],
+    'svtsg_lstm_bwd_max_rows': [_I] * 5,
+    'svtsg_lstm_bwd_active_clusters': [_I] * 6,
     'svtsg_lstm_weight_grad': [_P] * 3 + [_I] * 8 + [_P],
     'svtsg_lstm_weight_grad_active_clusters': [_I] * 5,
     'svtsg_scdm_attention': [_P] * 6 + [_I] * 8 + [_P],

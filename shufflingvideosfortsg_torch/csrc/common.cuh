@@ -258,6 +258,19 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The barrier of the two warps (64 threads) that take named barrier `id`.
+__device__ __forceinline__ void pair_barrier(int id) {
+    asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
+}
+
+// Whether a recurrence at width H with W_hh in elements of w_bytes bytes
+// multiplies on the tensor cores (lstm_fwd_mma_kernel in lstm_scan.cu,
+// lstm_bwd_mma_kernel in lstm_bwd.cu): bf16 W_hh at H = kRegH, in both
+// layouts.
+__host__ __device__ inline bool on_tensor_cores(int H, int w_bytes) {
+    return H == kRegH && w_bytes == 2;
+}
+
 // Two bf16 in one register, lo in the low half.
 __device__ __forceinline__ unsigned pack_bf16(bf16 lo, bf16 hi) {
     return (unsigned)__bfloat16_as_ushort(lo)

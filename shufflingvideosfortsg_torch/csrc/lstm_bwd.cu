@@ -62,7 +62,9 @@
 //    Where the shared slice leaves no row (H >= 304 in f32), the caller
 //    passes w_glob and the slices are read from device memory, laid out
 //    once a launch by a layout kernel (common.cuh), as in the forward: 15
-//    rows a cluster at H=512 in f32.
+//    rows a cluster at H=512 in f32. With bf16 W_hh at H=256 both products
+//    run on the bf16 tensor cores (lstm_bwd_mma_kernel below, the same
+//    partition and chain).
 // 2. The weight gradient (lstm_weight_grad_kernel) is out of the loop: once
 //    d_xw is written, d_w_hh[d] = sum_s h_prev[s]^T @ dgates[s] depends on
 //    nothing in the chain. It is an [H, P]^T x [P, 4H] product a direction
@@ -419,6 +421,407 @@ lstm_bwd_kernel(const XT* __restrict__ xw, const WT* __restrict__ w_hh,
                                       rows, R, H, UB);
             }
         }
+        cluster_arrive();
+        // off the chain, while the partials travel: the next step's gates,
+        // then the fetch of what the step after it needs
+        cp_async_wait<0>();  // stage(s-1) has landed
+        __syncthreads();
+        recompute(s - 1);
+        stage(s - 2);
+        cluster_wait();
+    }
+    cluster_sync();  // no block leaves while another may still write into it
+}
+
+// --- bf16 W_hh at H = kRegH: the recurrence on the tensor cores --------------
+//
+// With W_hh in bf16 (K4 at `precision: bf16`, K6c with bf16 w_hh) h_prev and
+// dgates are rounded to bf16 before their products, so every product of
+// the step is of two bf16 values and exact in f32: the kernel below takes
+// both on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulators)
+// and only the order of the f32 sums differs from lstm_bwd_kernel's. The
+// partition, the reverse loop, the chain's f32 arithmetic, d_xw in f32, the
+// prefetch a step ahead, the fixed-order sum of the 8 partials and the
+// recompute hidden behind the exchange are lstm_bwd_kernel's; what changes:
+//  - dh_prev, on the chain: block j's partial W[:, its 128 gate columns] .
+//    round(dgates)^T, [256 units k x R rows], with W as the A operand (m16
+//    tiles of k) and the rows as n8 tiles, so a ragged R pads to 8 in the
+//    fragments only (lanes past R read row R - 1; their sums are never
+//    sent). Warp w takes the 32 units k of block w and writes its f32
+//    partials straight into that block's recv[j] (distributed shared
+//    memory). W's A fragments (64 registers a thread) stay in registers for
+//    the whole run. The chain's epilogue writes each row's dgates once,
+//    rounded, as bf16 rows for ldmatrix (a unit's four gates side by side:
+//    gate column 4u + q).
+//  - The gate recompute, off the chain: round(h_prev)[R, 256] . W[:, 128
+//    gate columns] as lstm_fwd_mma_kernel takes it (W^T as the A operand,
+//    the rows of h as B, 2 k halves x 4 unit groups of warps, 16-row chunks,
+//    the halves' partials added through shared memory and a barrier of the
+//    two warps, W's columns permuted so that a thread's accumulators hold
+//    all four gates of a unit), but with W^T's fragments read by ldmatrix
+//    from one bf16 copy of the slice in shared memory (64 KB, rows padded to
+//    528 bytes), so that the registers hold one product's fragments only.
+//  - h_prev = out[s-1] lands by cp.async in padded bf16 rows as it is
+//    (bf16 out); f32 out (stacked K6c with f32 xw) lands f32 and is rounded
+//    to bf16 once, in one pass, before the product: no widening pass.
+// FLOOR leaves both products out (the gates are xw alone, the partials
+// exchanged are zero) and keeps the loads, the chain, the exchange and the
+// barriers: the latency floor of the T dependent steps (svtsg_lstm_bwd_floor).
+// What bounds it: at T=128, B=64 its two products (17 GFLOP) take 17 us at
+// the 989 TFLOP/s bf16 peak, below K4's bytes (41 us at 3.35 TB/s); the T
+// dependent steps take far longer (the floor: 0.29-0.30 ms on an NVIDIA
+// H100 80GB HBM3, the kernel 0.48-0.49).
+// The rows one cluster holds: BwdMmaLayout.
+
+constexpr int kBmHLd = kRegH + 8;  // bf16 row stride of h and of the W^T slice
+constexpr int kBmUnits = 8;        // units of a warp's unit group (recompute)
+constexpr int kBmCols = 4 * kRegH / kClusterBlocks;  // a block's gate columns
+constexpr int kBmGLd = kBmCols + 8;  // bf16 row stride of the rounded dgates
+constexpr int kBmRecvLd = kRegH / kClusterBlocks + 4;  // f32 row stride of a
+                                                       // partial
+static_assert(kRegH / kClusterBlocks == 4 * kBmUnits && kThreads == 8 * 32
+                  && kClusterBlocks == kThreads / 32,
+              "4 unit groups x 2 k halves; warp w sends to block w");
+
+// Byte offsets of a block's shared-memory regions for R rows with xw, out
+// and d_out in elements of x_bytes bytes.
+struct BwdMmaLayout {
+    int w, h, hf, part, xs, dout, cb, dg, dc, dgb, recv, total;
+    __host__ __device__ BwdMmaLayout(int R, int x_bytes) {
+        constexpr int UB = kRegH / kClusterBlocks;
+        const int RU = align16(R * UB * 4);
+        w = 0;                                  // bf16 [kBmCols][kBmHLd]: W^T
+        h = w + kBmCols * kBmHLd * 2;           // bf16 [R][kBmHLd]: h_prev
+        hf = h + R * kBmHLd * 2;                // f32 [R][kRegH]: f32 out[s-1]
+        part = hf + (x_bytes == 4 ? R * kRegH * 4 : 0);  // float4 [8][2][2][32]
+        xs = part + kThreads / 32 * 2 * 2 * 32 * 16;  // XT [R][4][UB]: xw[s]
+        dout = align16(xs + R * 4 * UB * x_bytes);  // XT [2][R][UB]: d_out[s]
+        cb = dout + 2 * RU;                     // f32 [3][R][UB]: c_seq
+        dg = cb + 3 * RU;                       // float4 [R][UB]: gate inputs
+        dc = dg + R * UB * 16;                  // f32 [R][UB]
+        dgb = dc + RU;                          // bf16 [R][kBmGLd]: dgates
+        recv = dgb + R * kBmGLd * 2;            // f32 [2][8][R][kBmRecvLd]
+        total = recv + 2 * kClusterBlocks * R * kBmRecvLd * 4;
+    }
+};
+
+// acc[mt][n] += W^T's A fragments (ldmatrix from the shared slice at wa, m16
+// tile mt at wa + 16 mt rows, k16 step kt at wa + 16 kt) times the h rows of
+// ldmatrix's matrices 2n and 2n + 1 (at hp, k16 step kt at hp + 16 kt), for
+// the n that FIRST (n = 0) and SECOND (n = 1) select.
+template <bool FIRST, bool SECOND>
+__device__ __forceinline__ void mma_rows_shared(float (&acc)[2][2][4],
+                                                const bf16* wa,
+                                                const bf16* hp) {
+#pragma unroll
+    for (int kt = 0; kt < 8; ++kt) {
+        unsigned b[4];
+        ldmatrix_x4(b, hp + 16 * kt);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+            unsigned a[4];
+            ldmatrix_x4(a, wa + mt * 16 * kBmHLd + 16 * kt);
+            if constexpr (FIRST) mma_bf16(acc[mt][0], a, b[0], b[1]);
+            if constexpr (SECOND) mma_bf16(acc[mt][1], a, b[2], b[3]);
+        }
+    }
+}
+
+// acc[mt][n] += W's A fragments wd[mt][kt] times the rounded dgates of
+// ldmatrix's matrices 2n and 2n + 1 (at gp, k16 step kt at gp + 16 kt), for
+// n = 0 and, with SECOND, n = 1.
+template <bool SECOND>
+__device__ __forceinline__ void mma_dh_rows(float (&acc)[2][2][4],
+                                            const unsigned (&wd)[2][8][4],
+                                            const bf16* gp) {
+#pragma unroll
+    for (int kt = 0; kt < 8; ++kt) {
+        unsigned b[4];
+        ldmatrix_x4(b, gp + 16 * kt);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+            mma_bf16(acc[mt][0], wd[mt][kt], b[0], b[1]);
+            if constexpr (SECOND) mma_bf16(acc[mt][1], wd[mt][kt], b[2], b[3]);
+        }
+    }
+}
+
+// lstm_bwd_kernel's arguments (w_glob and H unused: H = kRegH).
+template <int L, typename XT, bool FLOOR>
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_mma_kernel(const XT* __restrict__ xw, const bf16* __restrict__ w_hh,
+                    const XT* __restrict__ out, const float* __restrict__ c_seq,
+                    const XT* __restrict__ d_out,
+                    const float* __restrict__ d_hT,
+                    const float* __restrict__ d_cT, float* __restrict__ d_xw,
+                    const float4* __restrict__, int T, int B, int,
+                    int n_slices) {
+    constexpr int H = kRegH, H4 = 4 * H, UB = H / kClusterBlocks;
+    extern __shared__ float4 smem4[];
+    char* smem = reinterpret_cast<char*>(smem4);
+    const int rank = cluster_rank();
+    const int cid = blockIdx.x / kClusterBlocks;
+    const int d = cid % 2;                       // direction
+    int b0, R;                                   // this cluster's rows
+    slice_rows(B, n_slices, cid / 2, b0, R);
+    const int u0 = rank * UB;                    // this block's units
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+
+    const BwdMmaLayout lay(R, sizeof(XT));
+    bf16* w_s = reinterpret_cast<bf16*>(smem + lay.w);
+    bf16* h_s = reinterpret_cast<bf16*>(smem + lay.h);
+    float* hf_s = reinterpret_cast<float*>(smem + lay.hf);
+    float4* part = reinterpret_cast<float4*>(smem + lay.part);
+    XT* xs = reinterpret_cast<XT*>(smem + lay.xs);
+    char* dout_s = smem + lay.dout;
+    float* cb = reinterpret_cast<float*>(smem + lay.cb);
+    float4* dg = reinterpret_cast<float4*>(smem + lay.dg);  // gate inputs
+    float* dc_s = reinterpret_cast<float*>(smem + lay.dc);
+    bf16* dgb = reinterpret_cast<bf16*>(smem + lay.dgb);   // rounded dgates
+    float* recv = reinterpret_cast<float*>(smem + lay.recv);
+    const int RU = align16(R * UB * 4) / 4;  // floats of an [R][UB] region
+    const int RV = R * kBmRecvLd;            // floats of one block's partials
+
+    auto dout_at = [&](int s) {
+        return reinterpret_cast<XT*>(dout_s + (s & 1) * RU * 4);
+    };
+    auto c_at = [&](int s) { return cb + (s % 3) * RU; };
+    auto stage_c = [&](int s) {  // c_seq[s], this block's units
+        stage_segments(c_at(s), R, UB, true, [&](int i) {
+            return c_seq + (((size_t)s * 2 + d) * B + b0 + i) * H + u0;
+        });
+    };
+    // What step s needs from device memory: xw[s] and d_out[s] of this
+    // block's units, and for s > 0 h_prev = out[s-1] (all H) and c_seq[s-1].
+    auto stage = [&](int s) {
+        if (s >= 0) {
+            stage_segments(xs, R * 4, UB, true, [&](int i) {
+                return xw + xw_row<L>(s, d, b0 + i / 4, T, B, H) + (i % 4) * H
+                       + u0;
+            });
+            stage_segments(dout_at(s), R, UB, true, [&](int i) {
+                return d_out + out_row<L>(s, d, b0 + i, T, B, H) + u0;
+            });
+        }
+        if (s > 0) {
+            if constexpr (sizeof(XT) == 2) {  // bf16: into the padded rows
+                for (int e = tid; e < R * (H / 8); e += kThreads) {
+                    const int r = e / (H / 8), k = e % (H / 8) * 8;
+                    cp_async16(h_s + r * kBmHLd + k,
+                               out + out_row<L>(s - 1, d, b0 + r, T, B, H) + k);
+                }
+            } else {
+                stage_segments(hf_s, R, H, true, [&](int i) {
+                    return out + out_row<L>(s - 1, d, b0 + i, T, B, H);
+                });
+            }
+            stage_c(s - 1);
+        }
+        cp_async_commit();
+    };
+
+    // The gate recompute's warps: k half kh, unit group grp (units 8 grp ..
+    // 8 grp + 7 of the block). Lane l gives row l % 8 of matrix l / 8 of an
+    // ldmatrix.x4: of h, matrices 0 and 1 are k 0-7 and 8-15 of the 8 rows
+    // this warp finalizes, 2 and 3 those of its partner's 8; of the W^T
+    // slice, the A fragment's four 8 x 8 quarters.
+    const int kh = warp >> 2, grp = warp & 3;
+    const int l_row = (((lane >> 4) ^ kh) << 3) + (lane & 7);
+    const int l_col = kh * (H / 2) + ((lane >> 3) & 1) * 8;
+    const bf16* wa = w_s + (grp * 32 + (lane & 7) + ((lane >> 3) & 1) * 8)
+                               * kBmHLd
+                     + kh * (H / 2) + (lane >> 4) * 8;
+    float4* give = part + (grp * 2 + kh) * 2 * 2 * 32;  // [parity][mt][32]
+    const float4* take = part + (grp * 2 + (kh ^ 1)) * 2 * 2 * 32;
+
+    // The gate pre-activations of step s into `dg`, from what stage(s)
+    // brought: xw[s] + round(h_prev) @ W_hh (h_prev is zero at s = 0). Rows
+    // go 16 at a time; where the second 8 lie past R both warps of a pair
+    // multiply the first 8 and the first warp finalizes them.
+    auto recompute = [&](int s) {
+        const bool mult = !FLOOR && s > 0;
+        if constexpr (sizeof(XT) == 4) {
+            if (mult) {  // out[s-1] landed in f32: rounded to bf16 once
+                for (int e = tid; e < R * (H / 2); e += kThreads) {
+                    const int r = e / (H / 2), k = e % (H / 2) * 2;
+                    const float2 v =
+                        *reinterpret_cast<const float2*>(hf_s + r * H + k);
+                    *reinterpret_cast<__nv_bfloat162*>(h_s + r * kBmHLd + k) =
+                        __floats2bfloat162_rn(v.x, v.y);
+                }
+                __syncthreads();
+            }
+        }
+        for (int r0 = 0, parity = 0; r0 < R; r0 += 16, parity ^= 1) {
+            const bool split = r0 + 8 >= R;
+            if (split && kh == 1 && !mult) break;
+            // sum[mt][i]: the full sums of accumulator column i of the rows
+            // this warp finalizes (gate 2 mt at i < 2, gate 2 mt + 1 at i >= 2)
+            float sum[2][4] = {};
+            if (mult) {
+                float acc[2][2][4] = {};
+                const bf16* hp = h_s + min(r0 + l_row, R - 1) * kBmHLd + l_col;
+                if (!split)
+                    mma_rows_shared<true, true>(acc, wa, hp);
+                else if (kh == 0)
+                    mma_rows_shared<true, false>(acc, wa, hp);
+                else
+                    mma_rows_shared<false, true>(acc, wa, hp);
+                // each warp gives its partner the partner's rows, acc[][1]
+                float4* mine = give + parity * 2 * 32;
+                const float4* theirs = take + parity * 2 * 32;
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt)
+                    mine[mt * 32 + lane] =
+                        make_float4(acc[mt][1][0], acc[mt][1][1], acc[mt][1][2],
+                                    acc[mt][1][3]);
+                pair_barrier(1 + grp);
+                if (split && kh == 1) break;
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt) {
+                    const float4 o = theirs[mt * 32 + lane];
+                    sum[mt][0] = acc[mt][0][0] + o.x;
+                    sum[mt][1] = acc[mt][0][1] + o.y;
+                    sum[mt][2] = acc[mt][0][2] + o.z;
+                    sum[mt][3] = acc[mt][0][3] + o.w;
+                }
+            }
+            // unit u of this warp's group, rows r0 + 8 kh + 2t + j
+            const int u = grp * kBmUnits + g;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+                const int r = r0 + 8 * kh + 2 * t + j;
+                if (r >= R) continue;
+                const XT* x = xs + r * 4 * UB + u;
+                dg[r * UB + u] = make_float4(
+                    to_f32(x[0]) + sum[0][j], to_f32(x[UB]) + sum[0][2 + j],
+                    to_f32(x[2 * UB]) + sum[1][j],
+                    to_f32(x[3 * UB]) + sum[1][2 + j]);
+            }
+        }
+        __syncthreads();  // dg is whole; xs and h may be staged anew
+    };
+
+    // dh_prev's A fragments: W_hh[d][k][gate column c], k = 32 warp + 16 mt
+    // + m, c = 4 u + q (gate q of the block's unit u), k16 step kt the
+    // columns c = 16 kt ..
+    unsigned wd[2][8][4];
+    if constexpr (!FLOOR) {
+        const bf16* wrow = w_hh + (size_t)d * H * H4 + u0;
+        auto at = [&](int k, int c) {
+            return wrow[(size_t)k * H4 + (c & 3) * H + (c >> 2)];
+        };
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int kt = 0; kt < 8; ++kt) {
+                const int k = 32 * warp + 16 * mt + g, c = 16 * kt + 2 * t;
+                wd[mt][kt][0] = pack_bf16(at(k, c), at(k, c + 1));
+                wd[mt][kt][1] = pack_bf16(at(k + 8, c), at(k + 8, c + 1));
+                wd[mt][kt][2] = pack_bf16(at(k, c + 8), at(k, c + 9));
+                wd[mt][kt][3] = pack_bf16(at(k + 8, c + 8), at(k + 8, c + 9));
+            }
+    }
+    // lane l gives row (l % 8) + 8 (l / 16) of a 16-row chunk of the rounded
+    // dgates, columns 8 ((l / 8) % 2) ..: matrices 0, 1 the first n8 tile's
+    // B fragment, 2, 3 the second's
+    const int g_row = (lane & 7) + ((lane >> 4) << 3);
+    const int g_col = ((lane >> 3) & 1) * 8;
+    // the block that owns this warp's 32 units k, where its partials go
+    float* recv_w = remote_shared(recv, warp);
+    // This block's partial dh_prev of the step's rows, from the rounded
+    // dgates, into `dst` ([R][kBmRecvLd] floats of block `warp`).
+    auto dh_product = [&](float* dst) {
+        for (int r0 = 0; r0 < R; r0 += 16) {
+            float acc[2][2][4] = {};
+            const bool two = r0 + 8 < R;
+            if constexpr (!FLOOR) {
+                const bf16* gp = dgb + min(r0 + g_row, R - 1) * kBmGLd + g_col;
+                if (two)
+                    mma_dh_rows<true>(acc, wd, gp);
+                else
+                    mma_dh_rows<false>(acc, wd, gp);
+            }
+            // accumulator (mt, n, q): unit 16 mt + g + 8 (q / 2) of the
+            // warp's 32, row r0 + 8 n + 2t + q % 2
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+                for (int n = 0; n < 2; ++n)
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) {
+                        const int r = r0 + 8 * n + 2 * t + (q & 1);
+                        if (r < R)
+                            dst[r * kBmRecvLd + 16 * mt + g + (q >> 1) * 8] =
+                                acc[mt][n][q];
+                    }
+        }
+    };
+
+    stage_c(T - 1);
+    stage(T - 1);
+    if constexpr (!FLOOR) {
+        // W^T: row 32 grp + 16 mt + m holds gate 2 mt + m / 8 of the
+        // block's unit 8 grp + m % 8 (the recompute's A tiles)
+        const bf16* wsrc = w_hh + (size_t)d * H * H4 + u0;
+        for (int e = tid; e < H * 4 * UB; e += kThreads) {
+            const int k = e / (4 * UB), q = e / UB % 4, u = e % UB;
+            const int row = (u / kBmUnits) * 32 + (q / 2) * 16 + (q % 2) * 8
+                            + u % kBmUnits;
+            w_s[row * kBmHLd + k] = wsrc[(size_t)k * H4 + q * H + u];
+        }
+    }
+    for (int e = tid; e < R * UB; e += kThreads)
+        dc_s[e] = d_cT[((size_t)d * B + b0 + e / UB) * H + u0 + e % UB];
+    cp_async_wait<0>();  // stage(T-1) and c_seq[T-1] have landed
+    cluster_sync();  // every block runs before any writes into another
+    recompute(T - 1);
+    stage(T - 2);
+
+    for (int m = 0; m < T; ++m) {
+        const int s = T - 1 - m;
+        // the chain: dh and dc -> the four dgates of this block's units
+        const float* recv_cur = recv + (m & 1) * kClusterBlocks * RV;
+        const XT* dout_cur = dout_at(s);
+        const float* c_now = c_at(s);
+        const float* c_before = c_at(s - 1 + 3);
+        for (int p = tid; p < R * UB; p += kThreads) {
+            const int r = p / UB, u = p % UB;
+            const int row = b0 + r, unit = u0 + u;
+            const float4 a = dg[p];
+            const float gi = sigmoid(a.x), gf = sigmoid(a.y);
+            const float gg = tanhf(a.z), go = sigmoid(a.w);
+            const float c_t = c_now[p];
+            const float c_p = s > 0 ? c_before[p] : 0.0f;
+            float dh_in;
+            if (m == 0) {
+                dh_in = d_hT[((size_t)d * B + row) * H + unit];
+            } else {
+                const float* rv = recv_cur + r * kBmRecvLd + u;
+                dh_in = rv[0];
+                for (int j = 1; j < kClusterBlocks; ++j) dh_in += rv[j * RV];
+            }
+            const float dh = dh_in + to_f32(dout_cur[p]);
+            const float tc = tanhf(c_t);
+            const float dc = dc_s[p] + dh * go * (1.0f - tc * tc);
+            const float dgi = dc * gg * gi * (1.0f - gi);
+            const float dgf = dc * c_p * gf * (1.0f - gf);
+            const float dgg = dc * gi * (1.0f - gg * gg);
+            const float dgo = dh * tc * go * (1.0f - go);
+            float* dst = d_xw + xw_row<L>(s, d, row, T, B, H) + unit;
+            dst[0] = dgi;
+            dst[H] = dgf;
+            dst[2 * H] = dgg;
+            dst[3 * H] = dgo;
+            *reinterpret_cast<uint2*>(dgb + r * kBmGLd + 4 * u) = make_uint2(
+                pack_bf16(__float2bfloat16_rn(dgi), __float2bfloat16_rn(dgf)),
+                pack_bf16(__float2bfloat16_rn(dgg), __float2bfloat16_rn(dgo)));
+            dc_s[p] = dc * gf;
+        }
+        if (s == 0) break;  // the first step's dh_prev is never used
+        __syncthreads();    // the rounded dgates are whole
+        dh_product(recv_w + ((m + 1) & 1) * kClusterBlocks * RV + rank * RV);
         cluster_arrive();
         // off the chain, while the partials travel: the next step's gates,
         // then the fetch of what the step after it needs
@@ -857,9 +1260,16 @@ struct BwdArgs {
     int T, B, H, n_slices, wg_splits;
 };
 
-int max_rows(int H, int smem_limit, int x_bytes, bool w_global) {
+// A block's dynamic shared memory for R rows.
+int bwd_smem(int R, int H, int x_bytes, int w_bytes, bool w_global) {
+    return on_tensor_cores(H, w_bytes)
+               ? BwdMmaLayout(R, x_bytes).total
+               : BwdLayout(R, H, x_bytes, w_global).total;
+}
+
+int max_rows(int H, int smem_limit, int x_bytes, int w_bytes, bool w_global) {
     int R = 0;
-    while (BwdLayout(R + 1, H, x_bytes, w_global).total <= smem_limit) ++R;
+    while (bwd_smem(R + 1, H, x_bytes, w_bytes, w_global) <= smem_limit) ++R;
     return R;
 }
 
@@ -883,16 +1293,28 @@ cudaError_t launch_weight_grad(const void* out, const float* d_xw,
     return cudaGetLastError();
 }
 
-// The recurrence, then (with a d_w_hh to fill) the weight gradient.
+// The recurrence kernel of an instantiation at width H: with bf16 W_hh at
+// H = kRegH the tensor-core one, else the f32 products (W in registers at
+// H = kRegH, in shared or device memory at other widths).
 template <int L, typename XT, typename WT>
-cudaError_t launch(BwdArgs a, cudaStream_t st) {
-    auto kernel = a.H == kRegH ? lstm_bwd_kernel<L, XT, WT, kRegK>
-                               : lstm_bwd_kernel<L, XT, WT, 0>;
+auto bwd_kernel(int H) {
+    if constexpr (std::is_same<WT, bf16>::value)
+        return H == kRegH ? lstm_bwd_mma_kernel<L, XT, false>
+                          : lstm_bwd_kernel<L, XT, WT, 0>;
+    else
+        return H == kRegH ? lstm_bwd_kernel<L, XT, WT, kRegK>
+                          : lstm_bwd_kernel<L, XT, WT, 0>;
+}
+
+// One launch of the recurrence `kernel` over the batch's row slices.
+template <typename XT, typename WT, typename K>
+cudaError_t launch_recurrence(K kernel, const BwdArgs& a, cudaStream_t st) {
     if (a.n_slices < 1 || a.n_slices > a.B || a.H % kClusterBlocks
         || (a.w_glob && a.H == kRegH))
         return cudaErrorInvalidValue;
     const int rows = (a.B + a.n_slices - 1) / a.n_slices;
-    const int smem = BwdLayout(rows, a.H, sizeof(XT), a.w_glob != nullptr).total;
+    const int smem = bwd_smem(rows, a.H, sizeof(XT), sizeof(WT),
+                              a.w_glob != nullptr);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
@@ -908,7 +1330,14 @@ cudaError_t launch(BwdArgs a, cudaStream_t st) {
         static_cast<const XT*>(a.d_out), a.d_hT, a.d_cT, a.d_xw,
         static_cast<const float4*>(a.w_glob), a.T, a.B, a.H, a.n_slices);
     if (err != cudaSuccess) return err;
-    err = cudaGetLastError();
+    return cudaGetLastError();
+}
+
+// The recurrence, then the weight gradient.
+template <int L, typename XT, typename WT>
+cudaError_t launch(BwdArgs a, cudaStream_t st) {
+    const cudaError_t err =
+        launch_recurrence<XT, WT>(bwd_kernel<L, XT, WT>(a.H), a, st);
     if (err != cudaSuccess) return err;
     return launch_weight_grad<L, XT, WT>(a.out, a.d_xw, a.d_w_hh, a.T, a.B,
                                          a.H, a.wg_splits, st);
@@ -937,22 +1366,33 @@ cudaError_t dispatch(int layout, int x_dtype, int w_dtype, F f) {
 extern "C" {
 
 // The most rows one cluster of the backward recurrence holds at width H,
-// with xw, out and d_out in elements of x_bytes bytes, within smem_limit
-// bytes of dynamic shared memory a block (0 when not even one row fits),
-// with the W slice in shared memory or (w_global) in device memory.
-int svtsg_lstm_bwd_max_rows(int H, int smem_limit, int x_bytes, int w_global) {
-    return max_rows(H, smem_limit, x_bytes, w_global);
+// with xw, out and d_out in elements of x_bytes bytes and W_hh in elements
+// of w_bytes bytes, within smem_limit bytes of dynamic shared memory a
+// block (0 when not even one row fits), with the W slice in shared memory
+// or (w_global) in device memory.
+int svtsg_lstm_bwd_max_rows(int H, int smem_limit, int x_bytes, int w_bytes,
+                            int w_global) {
+    return max_rows(H, smem_limit, x_bytes, w_bytes, w_global);
 }
 
-// As svtsg_lstm_active_clusters, for the backward recurrence. Every
-// instantiation of a storage size shares the shared memory BwdLayout gives
-// for these arguments, takes no static shared memory, and fits one block an
-// SM by registers (__launch_bounds__(kThreads, 1): at most 255 a thread),
-// so the f32 one stands for 4-byte storage and the stacked bf16-xw one for
-// 2-byte storage, the flat bf16 layout (K4 at bf16) among them.
-int svtsg_lstm_bwd_active_clusters(int H, int rows, int x_bytes, int w_global,
-                                   int device) {
-    const int smem = BwdLayout(rows, H, x_bytes, w_global).total;
+// As svtsg_lstm_active_clusters, for the backward recurrence. With bf16
+// W_hh at H = kRegH it asks the tensor-core kernel of the flat bf16 (x_bytes
+// 2) or the stacked f32-xw layout, whose instantiations share BwdMmaLayout's
+// shared memory for these arguments. Otherwise it asks the f32 kernel
+// (x_bytes 4) or the stacked bf16-xw, f32-W_hh one, each standing for the
+// other instantiations of its storage size: they share BwdLayout's shared
+// memory, take no static shared memory, and fit one block an SM by
+// registers (__launch_bounds__(kThreads, 1): at most 255 a thread).
+int svtsg_lstm_bwd_active_clusters(int H, int rows, int x_bytes, int w_bytes,
+                                   int w_global, int device) {
+    const int smem = bwd_smem(rows, H, x_bytes, w_bytes, w_global);
+    if (on_tensor_cores(H, w_bytes))
+        return x_bytes == sizeof(float)
+                   ? active_clusters(
+                         lstm_bwd_mma_kernel<kStacked, float, false>, smem,
+                         device)
+                   : active_clusters(lstm_bwd_mma_kernel<kFlat, bf16, false>,
+                                     smem, device);
     if (x_bytes == sizeof(float))
         return active_clusters(
             H == kRegH ? lstm_bwd_kernel<kFlat, float, float, kRegK>
@@ -987,6 +1427,26 @@ int svtsg_lstm_bwd(const void* xw, const void* w_hh, const void* out,
     return dispatch(layout, xw_dtype, w_dtype, [&](auto l, auto x, auto w) {
         return launch<decltype(l)::value, decltype(x), decltype(w)>(a, st);
     });
+}
+
+// The flat bf16 backward recurrence at H = kRegH (K4 at `precision: bf16`)
+// with both products left out: the time of T dependent steps of prefetch,
+// chain, stores, exchange of (zero) partials and barriers of the
+// tensor-core kernel. The arguments of svtsg_lstm_bwd's flat bf16 case
+// without the weight gradient's; d_xw is that of a layer whose W_hh is
+// zero. Returns the CUDA error code (0 on success).
+int svtsg_lstm_bwd_floor(const void* xw, const void* w_hh, const void* out,
+                         const float* c_seq, const void* d_out,
+                         const float* d_hT, const float* d_cT, float* d_xw,
+                         int T, int B, int H, int n_slices, int device,
+                         void* stream) {
+    if (H != kRegH) return cudaErrorInvalidValue;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const BwdArgs a{xw, w_hh, out, c_seq, d_out, d_hT, d_cT, d_xw, nullptr,
+                    nullptr, T, B, H, n_slices, 1};
+    return launch_recurrence<bf16, bf16>(lstm_bwd_mma_kernel<kFlat, bf16, true>,
+                                         a, static_cast<cudaStream_t>(stream));
 }
 
 // The weight gradient alone: d_w_hh [2, H, 4H] f32 from the forward's out

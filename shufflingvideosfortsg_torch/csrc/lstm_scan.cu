@@ -327,10 +327,6 @@ __device__ __forceinline__ void mma_rows(float (&acc)[2][2][4],
     }
 }
 
-__device__ __forceinline__ void pair_barrier(int id) {
-    asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory");
-}
-
 // lstm_fwd_kernel's arguments (w_glob and H unused: H = kRegH).
 template <int L, typename XT, bool GATES_BF16, bool FLOOR>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -543,13 +539,6 @@ struct FwdArgs {
     float4* w_glob;  // null, or the device-memory slices (w_layout_kernel)
     int T, B, H, n_slices;
 };
-
-// Whether the recurrence at width H with W_hh in elements of w_bytes bytes
-// multiplies on the tensor cores (lstm_fwd_mma_kernel): bf16 W_hh at H =
-// kRegH, in both layouts.
-__host__ __device__ inline bool on_tensor_cores(int H, int w_bytes) {
-    return H == kRegH && w_bytes == 2;
-}
 
 // A block's dynamic shared memory for R rows.
 int fwd_smem(int R, int H, int x_bytes, int w_bytes, bool w_global) {

@@ -25,14 +25,17 @@ and each (direction, slice) is run by one thread-block cluster of 8 blocks
 that exchanges h (forward) or the dh_prev partials (backward) through
 distributed shared memory, with no barrier across the grid; clusters the
 card cannot hold at once queue. A cluster holds at most as many rows as
-its blocks' shared memory allows (at H=256 in f32: 59 forward, 11 backward), which
-bounds a slice, not the batch. Each block keeps its slice of W_hh in shared
+its blocks' shared memory allows (at H=256 in f32: 59 forward, 11 backward;
+with bf16 xw and W_hh, on the tensor cores: 127 forward, 32 backward),
+which bounds a slice, not the batch. Each block keeps its slice of W_hh in shared
 memory (registers at H=256) where that leaves room for a row; from H=304 in
 f32 it reads the slice from device memory instead, laid out there once a
 launch (:func:`_cluster_plan` picks; 23 forward and 15 backward rows a
 cluster at H=512). With bf16 W_hh at H=256 the forward multiplies on the
 bf16 tensor cores and exchanges h in bf16 (127 rows a cluster with bf16
-xw). The backward's weight gradient is a second kernel of
+xw), and the backward takes its gate recompute and dh_prev there too
+(:func:`lstm_bwd_exchange_floor` times its chain without them). The
+backward's weight gradient is a second kernel of
 the same launch group, outside the step loop, whose plain version is
 :func:`lstm_weight_grad_plain`: a product over the (T-1)*B (step, row)
 pairs, split over them inside a thread-block cluster. A cluster owns one
@@ -126,9 +129,9 @@ def _cluster_plan(name: str, kernel: str, H: int, x_bytes: int,
                   device: int, w_bytes: int = 4) -> Tuple[int, int, bool]:
     """What the card ``device`` gives one recurrence kernel (``kernel``:
     ``svtsg_lstm`` or ``svtsg_lstm_bwd``) at width H with activations of
-    ``x_bytes`` bytes (and, for the forward, W_hh of ``w_bytes`` bytes:
-    at H=256 bf16 W_hh runs the tensor-core kernel, whose rows take other
-    shared memory), asked of the C side once: (the most batch rows one
+    ``x_bytes`` bytes and W_hh of ``w_bytes`` bytes (at H=256 bf16 W_hh
+    runs the tensor-core kernels, whose rows take other shared memory),
+    asked of the C side once: (the most batch rows one
     cluster holds, from the shared-memory formula; the row slices a
     direction that fill one wave, half the clusters the card holds at once
     at that many rows, ``cudaOccupancyMaxActiveClusters``; whether the
@@ -138,7 +141,7 @@ def _cluster_plan(name: str, kernel: str, H: int, x_bytes: int,
     Raises when not even one row fits or the card holds no cluster."""
     lib = _kernels.library()
     max_rows = getattr(lib, f'{kernel}_max_rows')
-    sizes = (x_bytes, w_bytes) if kernel == 'svtsg_lstm' else (x_bytes,)
+    sizes = (x_bytes, w_bytes)
     w_global = False
     cap = max_rows(H, _kernels.MAX_SMEM_BYTES, *sizes, 0)
     if cap < 1:
@@ -249,7 +252,8 @@ def _launch_backward(name: str, args, layout: int, T: int, B: int, H: int):
     lib = _kernels.library()
     cap, a_wave, w_global = _cluster_plan(name, 'svtsg_lstm_bwd', H,
                                           xw.dtype.itemsize,
-                                          _device_index(dev))
+                                          _device_index(dev),
+                                          w_hh.dtype.itemsize)
     slices = _row_slices(B, cap, a_wave)
     splits = _weight_grad_splits(T, B, H, layout, xw.dtype, w_hh.dtype,
                                  _device_index(dev))
@@ -425,6 +429,34 @@ def lstm_exchange_floor(xw_flat: Tensor, w_hh: Tensor) -> Tensor:
         _device_index(dev), _stream(dev))
     _kernels.check(err, 'lstm_exchange_floor')
     return out
+
+
+def lstm_bwd_exchange_floor(xw_flat: Tensor, w_hh: Tensor, out: Tensor,
+                            c_seq: Tensor, d_out: Tensor, d_hT: Tensor,
+                            d_cT: Tensor) -> Tensor:
+    """The latency floor of the backward recurrence, for measurements only:
+    K4's tensor-core kernel (bf16 inputs, H=256) with both products left
+    out, so that T dependent steps of prefetch, the chain to dgates,
+    stores, the exchange of (zero) dh_prev partials and the cluster
+    barriers remain; no weight gradient. Same inputs as
+    :func:`lstm_recurrence_bwd`, on a card only; returns ``d_xw`` (that of
+    a layer whose W_hh is zero)."""
+    args = (xw_flat, w_hh, out, c_seq, d_out, d_hT, d_cT)
+    T, B, H = _check_bwd_inputs(*args)
+    dev = _cuda_checks('lstm_bwd_exchange_floor', args, H)
+    if xw_flat.dtype != torch.bfloat16 or H != 256:
+        raise ValueError('lstm_bwd_exchange_floor: the floor is that of the '
+                         'tensor-core kernel, bf16 at H=256; got '
+                         f'{xw_flat.dtype} at H={H}')
+    cap, a_wave, _ = _cluster_plan('lstm_bwd_exchange_floor', 'svtsg_lstm_bwd',
+                                   H, 2, _device_index(dev), 2)
+    slices = _row_slices(B, cap, a_wave)
+    d_xw = torch.empty(xw_flat.shape, device=dev, dtype=torch.float32)
+    err = _kernels.library().svtsg_lstm_bwd_floor(
+        *(a.data_ptr() for a in args), d_xw.data_ptr(), T, B, H, len(slices),
+        _device_index(dev), _stream(dev))
+    _kernels.check(err, 'lstm_bwd_exchange_floor')
+    return d_xw
 
 
 def _cotangent(g: Optional[Tensor], shape, dtype, like: Tensor) -> Tensor:

@@ -509,10 +509,34 @@ K3_BF16_STATE_CUDA_SHARE = 2.0 ** -8
 K4_BF16_CUDA_SHARE = 2.0 ** -6
 
 
+# at H=256 K4's recurrence is the tensor-core kernel; on an H100 (7 row
+# slices a direction) B=5 and 7 give it 1 row a cluster, B=35 5 rows and
+# B=119 17, ragged against its n8 tiles and 16-row chunks
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize('T,B,H', [(128, 64, 256), (15, 32, 256),
-                                   (33, 5, 256), (40, 37, 128), (9, 3, 304)])
+                                   (33, 5, 256), (40, 37, 128), (9, 3, 304),
+                                   (20, 7, 256), (20, 35, 256),
+                                   (11, 119, 256)])
 def test_k3_k4_kernels_bf16_match_plain_on_cuda(T, B, H):
+    _check_k3_k4_bf16(T, B, H)
+
+
+@pytest.mark.requires_cuda
+def test_k4_kernel_bf16_at_the_most_rows_a_cluster_holds_on_cuda():
+    """A batch that gives every cluster of a wave the most rows one of K4's
+    tensor-core kernel holds (its shared memory, BwdMmaLayout)."""
+    from shufflingvideosfortsg_torch.ops import lstm_scan as L
+    cap, a_wave, _ = L._cluster_plan('test', 'svtsg_lstm_bwd', 256, 2,
+                                     torch.cuda.current_device(), 2)
+    B = cap * a_wave
+    assert max(b1 - b0 for b0, b1 in L._row_slices(B, cap, a_wave)) == cap
+    _check_k3_k4_bf16(6, B, 256)
+
+
+def _check_k3_k4_bf16(T, B, H):
+    """K3 and K4 with bf16 xw, W_hh, out and d_out against their plain
+    versions, two launches of each bit for bit, and K4's weight-gradient
+    kernel alone."""
     from shufflingvideosfortsg_torch.ops.lstm_scan import (
         FLAT, lstm_recurrence_bwd, lstm_recurrence_bwd_plain,
         lstm_recurrence_train, lstm_recurrence_train_plain, lstm_weight_grad,

@@ -137,6 +137,23 @@ def test_exchange_floor_runs_on_a_card_only(dtype):
         L.lstm_exchange_floor(xw, w_hh.double())
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_bwd_exchange_floor_runs_on_a_card_only(dtype):
+    """The backward's floor takes K4's inputs and runs on a card only."""
+    T, B, H = 2, 1, 256
+    f32 = torch.float32
+    args = [torch.zeros(T, B, 8 * H, dtype=dtype),
+            torch.zeros(2, H, 4 * H, dtype=dtype),
+            torch.zeros(T, B, 2 * H, dtype=dtype),
+            torch.zeros(T, 2, B, H, dtype=f32),
+            torch.zeros(T, B, 2 * H, dtype=dtype),
+            torch.zeros(2, B, H, dtype=f32), torch.zeros(2, B, H, dtype=f32)]
+    with pytest.raises(ValueError, match='CUDA'):
+        L.lstm_bwd_exchange_floor(*args)
+    with pytest.raises(TypeError, match='w_hh'):
+        L.lstm_bwd_exchange_floor(args[0], args[1].double(), *args[2:])
+
+
 class _FakeLibrary:
     """The C side's row and cluster queries of the recurrences, recorded:
     127 rows a cluster, 15 clusters at once."""
@@ -154,14 +171,15 @@ class _FakeLibrary:
 @pytest.mark.parametrize('kernel,x_bytes,w_bytes,sizes', [
     ('svtsg_lstm', 2, 2, (2, 2)), ('svtsg_lstm', 4, 4, (4, 4)),
     ('svtsg_lstm', 2, 4, (2, 4)), ('svtsg_lstm', 4, 2, (4, 2)),
-    ('svtsg_lstm_bwd', 2, 2, (2,)), ('svtsg_lstm_bwd', 4, 4, (4,))])
+    ('svtsg_lstm_bwd', 2, 2, (2, 2)), ('svtsg_lstm_bwd', 4, 4, (4, 4)),
+    ('svtsg_lstm_bwd', 2, 4, (2, 4)), ('svtsg_lstm_bwd', 4, 2, (4, 2))])
 def test_cluster_plan_asks_the_forward_with_the_weights_bytes(
         monkeypatch, kernel, x_bytes, w_bytes, sizes):
-    """The forward's rows a cluster depend on W_hh's dtype (at H=256 bf16
-    W_hh runs the tensor-core kernel, whose rows take other shared memory),
-    so the plan passes its bytes to the forward's C queries; the
-    backward's take xw's alone. Half the clusters the card holds run the
-    slices of one direction."""
+    """The rows a cluster of either recurrence holds depend on W_hh's
+    dtype as well as xw's (at H=256 bf16 W_hh runs the tensor-core
+    kernels, forward and backward, whose rows take other shared memory),
+    so the plan passes both sizes to the C queries of both. Half the
+    clusters the card holds run the slices of one direction."""
     fake = _FakeLibrary()
     monkeypatch.setattr(L._kernels, 'library', lambda: fake)
     L._cluster_plan.cache_clear()
