@@ -56,6 +56,7 @@ _SIGNATURES = {
     'svtsg_scdm_bwd_smem_bytes': [_I] * 3,
     'svtsg_scdm_smem_bytes': [_I] * 3,
     'svtsg_scdm_tanh': [_P] * 2 + [_I] * 2 + [_P],
+    'svtsg_scdm_term_check': [_P] * 2 + [_I, _P],
 }
 
 _lock = threading.Lock()

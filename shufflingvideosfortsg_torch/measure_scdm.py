@@ -3,6 +3,9 @@ kernel (``scdm_attention_bwd_core``), at the shapes the evaluation and
 training paths give them.
 
     python -m shufflingvideosfortsg_torch.measure_scdm [--reps 20]
+    python -m shufflingvideosfortsg_torch.measure_scdm --precision bf16 \
+        [--sweep]
+    python -m shufflingvideosfortsg_torch.measure_scdm --term-rate
     python -m shufflingvideosfortsg_torch.measure_scdm --bwd [--sweep]
 
 Prints the card's name and power limit, then one line a case: B, T, N, Dh,
@@ -15,6 +18,30 @@ the share of that. The cases are (32, 128, 15, 512,
 512), (64, 128, 15, 512, 512) keeping P, (32, 128, 25, 512, 512),
 (32, 128, 40, 512, 512) and (8, 128, 40, 2048, 2048); the inputs come from
 ``np.random.RandomState(0)``.
+
+With ``--precision bf16``, K2 at bf16 (the four inputs and C bf16, the
+same values rounded) at the same cases, the graphed evaluation tick's
+B=256 and the served batch (512, 1024, 15, 512, 512): the kernel's
+milliseconds beside the f32 kernel's on the f32 inputs, the bound (bf16
+products on the tensor cores, 2 bytes an element) and the floor the
+published special-function rate gives its tanh design, with the shares
+of both (no plain version: at the served batch it would hold 16 GB), and
+the plan's rows where the package has them; ``--sweep`` adds a line for
+each tile of rows the bf16 kernel takes (8, 16 and 32) at every case,
+launched through the C entry point ``svtsg_scdm_attention`` with the
+rows given.
+
+With ``--term-rate``, the rate of the bf16 kernel's term code from
+registers alone (the packed sum, tanh_fwd on both halves and the packed
+rounding, 8 independent chains a thread at two blocks an SM) and of its
+special-function share alone (an ex2 and a reciprocal a term), in terms
+a second, each beside the floor the published rate gives (2 operations a
+term at SFU_OPS_PER_SM_CLOCK an SM a clock and BOOST_HZ), and the SM clock
+``nvidia-smi`` read during the run; then, at each bf16 case, the time the
+term code alone would take for the terms the kernel forms
+(``term_code_ms``: B*T*Dh times N rounded up to 16 words). The term code
+is built from ``csrc/measure/scdm_term_rate.cu``, which includes
+``csrc/scdm.cu`` and is not part of the kernel library.
 
 With ``--bwd``, one line a backward case, (64, 128, 15, 512), (64, 128,
 25, 512) and (8, 128, 40, 2048) as (B, T, N, Dh), at the forward's P and
@@ -35,8 +62,9 @@ launched one by one from Python, as the models launch them.
 The file uses nothing of the package but ``ops/scdm_fused``'s
 ``scdm_attention_fused``, ``scdm_attention_fused_trainable``,
 ``scdm_attention_plain``, ``scdm_attention_bwd_core`` and
-``scdm_attention_bwd_core_plain`` (and the plan where there is one, and
-for ``--sweep`` the private launch ``_launch_backward``), so
+``scdm_attention_bwd_core_plain`` (and the plan where there is one, for
+``--bwd --sweep`` the private launch ``_launch_backward``, and for the
+bf16 ``--sweep`` the library's ``svtsg_scdm_attention``), so
 another checkout's kernels are timed on the same inputs by copying this
 file into that checkout's package and running it there.
 """
@@ -44,11 +72,15 @@ file into that checkout's package and running it there.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import os
 import subprocess
+from typing import Optional
 
 import numpy as np
 import torch
 
+from . import _kernels
 from .ops import scdm_fused
 from .ops.scdm_fused import (scdm_attention_bwd_core,
                              scdm_attention_bwd_core_plain,
@@ -56,12 +88,17 @@ from .ops.scdm_fused import (scdm_attention_bwd_core,
                              scdm_attention_fused_trainable,
                              scdm_attention_plain)
 
-# the H100 SXM's f32 peak outside the tensor cores and its memory rate
+# the H100 SXM's f32 peak outside the tensor cores, its dense bf16
+# tensor-core peak and its memory rate
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # the special-function pipe: 16 operations a clock an SM at the H100 SXM's
-# 1.98 GHz boost clock; the kernel's tanh (tanh_fwd in csrc/scdm.cu)
-# spends two of them, an ex2 and a reciprocal (a tanh with fewer exists)
+# 1.98 GHz boost clock (the published rate); the kernel's tanh (tanh_fwd in
+# csrc/scdm.cu) spends two of them, an ex2 and a reciprocal (a tanh with
+# fewer exists). On an NVIDIA H100 80GB HBM3 at 700 W, ex2 and reciprocal
+# alone ran at twice this rate (--term-rate), so sfu_bound_ms is a model
+# from the published rate, not a floor the card holds to
 SFU_OPS_PER_SM_CLOCK = 16
 BOOST_HZ = 1.98e9
 TANH_SFU_OPS = 2
@@ -70,23 +107,38 @@ TANH_SFU_OPS = 2
 CASES = ((32, 128, 15, 512, 512, False), (64, 128, 15, 512, 512, True),
          (32, 128, 25, 512, 512, False), (32, 128, 40, 512, 512, False),
          (8, 128, 40, 2048, 2048, False))
+# K2 at bf16: the cases above, the graphed evaluation tick (B=256) and the
+# served batch (one video of T=1024 against 512 queries)
+BF16_CASES = CASES + ((256, 128, 15, 512, 512, False),
+                      (512, 1024, 15, 512, 512, False))
 # the backward's (B, T, N, Dh, Ds): the GMD train step's, N=25, and N=40 at
 # the widest width
 BWD_CASES = ((64, 128, 15, 512, 512), (64, 128, 25, 512, 512),
              (8, 128, 40, 2048, 2048))
+TERM_RATE_SOURCE = os.path.join(_kernels.CSRC_DIR, 'measure',
+                                'scdm_term_rate.cu')
+KBF16 = 1  # csrc/common.cuh's dtype code of bf16
 
 
 def scdm_bound(B: int, T: int, N: int, Dh: int, Ds: int, keep_p: bool,
                elem_bytes: int = 4):
-    """The least time of the forward: (ms, 'operations' or 'bytes'). One
-    add, one tanh and one multiply-add per (b,t,n,k), counted as 4 f32
-    operations, and one multiply-add per (b,t,n,d) of the context; each
-    input read once, C (and P where kept, in f32) written once, the
-    inputs and C in elements of ``elem_bytes`` (f32 4, bf16 2)."""
-    flops = B * T * N * 4 * Dh + B * T * N * 2 * Ds
+    """The least time of the forward: (ms, 'operations' or 'bytes'). Per
+    (b,t,n,k) one add, one tanh and the logit's multiply-add, and per
+    (b,t,n,d) the context's multiply-add; each input read once, C (and P
+    where kept, in f32) written once, the inputs and C in elements of
+    ``elem_bytes`` (f32 4, bf16 2). In f32 all of it at the f32 peak (4
+    operations a term, 2 a context element). In bf16 the two products are
+    bf16 products, at the tensor-core peak, while the add and the tanh (2
+    operations a term) take the f32 peak; the two pipes run at once, so
+    the longer of their times counts."""
+    terms, ctx = B * T * N * Dh, B * T * N * Ds
     nbytes = (elem_bytes * (B * T * Dh + B * N * Dh + Dh + B * N * Ds
                             + B * T * Ds) + (4 * B * T * N if keep_p else 0))
-    return bound_ms(flops, nbytes)
+    if elem_bytes == 4:
+        return bound_ms(4 * terms + 2 * ctx, nbytes)
+    return _larger(max(2 * terms / PEAK_F32_FLOPS,
+                       2 * (terms + ctx) / PEAK_BF16_FLOPS),
+                   nbytes / PEAK_BYTES)
 
 
 def scdm_bwd_bound(B: int, T: int, N: int, Dh: int, elem_bytes: int = 4):
@@ -104,7 +156,11 @@ def scdm_bwd_bound(B: int, T: int, N: int, Dh: int, elem_bytes: int = 4):
 def bound_ms(flops: float, nbytes: float):
     """(ms, 'operations' or 'bytes'): the larger of flops over the f32
     peak and bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return _larger(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+
+
+def _larger(t_ops: float, t_bytes: float):
+    """(ms, 'operations' or 'bytes') of seconds of operations and bytes."""
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes')
 
@@ -189,6 +245,115 @@ def time_scdm(args, keep_p: bool, reps: int) -> dict:
                 pct_of_sfu_bound=f'{100 * sfu / ms:.1f}')
 
 
+def time_scdm_bf16(args, keep_p: bool, reps: int,
+                   rows: Optional[int] = None) -> dict:
+    """The kernel's device time at bf16 (``args`` f32, rounded to bf16;
+    at a tile of ``rows`` rows where given, through :func:`launch_rows`,
+    else at the plan's, printed where the package has a plan)
+    beside the f32 kernel's on ``args``, the bound at 2 bytes an element
+    and the floor of its tanh design, as printable fields."""
+    B, T, Dh = args[0].shape
+    N, Ds = args[1].shape[1], args[3].shape[-1]
+    fused = scdm_attention_fused_trainable if keep_p else scdm_attention_fused
+    half = [a.bfloat16() for a in args]
+    fields = {}
+    if rows is None:
+        plan = getattr(scdm_fused, '_scdm_rows', None)
+        if plan is not None:
+            fields['rows'] = plan(B, T, N, 0, 2)
+
+        def run():
+            return fused(*half)
+    else:
+        fields['rows'] = rows
+
+        def run():
+            return launch_rows(half, keep_p, rows)
+    with torch.no_grad():
+        ms = graph_ms(run, reps)
+        f32_ms = graph_ms(lambda: fused(*args), reps)
+    b_ms, b_by = scdm_bound(B, T, N, Dh, Ds, keep_p, elem_bytes=2)
+    sms = torch.cuda.get_device_properties(args[0].device).multi_processor_count
+    sfu = sfu_bound_ms(B, T, N, Dh, sms)
+    return dict(**fields, kernel_ms=f'{ms:.4f}',
+                f32_kernel_ms=f'{f32_ms:.4f}', bound_ms=f'{b_ms:.4f}',
+                bound_by=b_by,
+                pct_of_bound=f'{100 * b_ms / ms:.1f}',
+                sfu_bound_ms=f'{sfu:.4f}', tanh_sfu_ops=TANH_SFU_OPS,
+                pct_of_sfu_bound=f'{100 * sfu / ms:.1f}')
+
+
+def launch_rows(args, keep_p: bool, rows: int):
+    """One launch of the bf16 forward on the bf16 CUDA tensors ``args`` at
+    a tile of ``rows`` rows, through the library's C entry point (the
+    package's launch takes the plan's rows): (C, P or None)."""
+    B, T, Dh = args[0].shape
+    N, Ds = args[1].shape[1], args[3].shape[-1]
+    dev = args[0].device
+    out = torch.empty(B, T, Ds, device=dev, dtype=torch.bfloat16)
+    P = (torch.empty(B, T, N, device=dev, dtype=torch.float32)
+         if keep_p else None)
+    err = _kernels.library().svtsg_scdm_attention(
+        *(a.data_ptr() for a in args), out.data_ptr(),
+        None if P is None else P.data_ptr(), B, T, N, Dh, Ds, rows, KBF16,
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    _kernels.check(err, 'scdm_attention_fused')
+    return out, P
+
+
+def term_rate_library() -> ctypes.CDLL:
+    """Build ``csrc/measure/scdm_term_rate.cu`` into the package's build
+    directory and load it."""
+    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
+    lib = os.path.join(_kernels.BUILD_DIR,
+                       f'libsvtsg_term_rate_{os.getpid()}.so')
+    subprocess.run([_kernels.nvcc_path(), *_kernels.ARCH_FLAGS, '-std=c++17',
+                    '-O3', '-Xcompiler', '-fPIC', '-shared', TERM_RATE_SOURCE,
+                    '-o', lib], check=True, timeout=600)
+    try:
+        so = ctypes.CDLL(lib)
+    finally:
+        os.remove(lib)
+    so.svtsg_scdm_term_rate.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_void_p]
+    so.svtsg_scdm_term_rate.restype = ctypes.c_int
+    return so
+
+
+def term_rates(sms: int, iters: int = 20000) -> dict:
+    """Terms a second of ``svtsg_scdm_term_rate``'s two modes (0: the
+    term code, 1: ex2 and reciprocal alone) at two blocks an SM, with the
+    SM clock that ``nvidia-smi`` read during each run: {mode: (rate,
+    clock)}."""
+    fn = term_rate_library().svtsg_scdm_term_rate
+    blocks = 2 * sms
+    out = torch.empty(blocks * 256, dtype=torch.int32, device='cuda')
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {}
+    for mode in (0, 1):
+        def launch(n):
+            err = fn(mode, out.data_ptr(), blocks, n, 0, stream)
+            if err:
+                raise RuntimeError(f'term_rate: CUDA error {err}')
+        launch(100)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):  # 0.1-0.25 s of work, read by nvidia-smi
+            launch(iters)
+        end.record()
+        clock = subprocess.run(['nvidia-smi', '--query-gpu=clocks.sm',
+                                '--format=csv,noheader'], check=True,
+                               capture_output=True, text=True,
+                               timeout=60).stdout.strip()
+        end.synchronize()
+        ms = start.elapsed_time(end) / 20
+        rates[mode] = (blocks * 256 * iters * 16 / (ms * 1e-3), clock)
+    return rates
+
+
 def bwd_operands(B: int, T: int, N: int, Dh: int, Ds: int, device):
     """(video_proj, sent_proj, w, P, dP, sent_feat, G) on ``device``: the
     forward's inputs as :func:`operands`, P its plain softmax, G a normal
@@ -243,10 +408,15 @@ def time_scdm_bwd(vp, sp, w, P, dP, sf, g_out, reps: int,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--reps', type=int, default=20)
+    ap.add_argument('--precision', choices=('f32', 'bf16'), default='f32',
+                    help='time K2 in bf16 beside the f32 kernel')
+    ap.add_argument('--term-rate', action='store_true',
+                    help="the bf16 kernel's term code's own rate")
     ap.add_argument('--bwd', action='store_true',
                     help="time K5's backward kernel instead of K2")
     ap.add_argument('--sweep', action='store_true',
-                    help='with --bwd, also every launch override')
+                    help='with --bwd, also every launch override; with '
+                    '--precision bf16, every tile of rows')
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('measure_scdm needs an NVIDIA GPU')
@@ -265,6 +435,32 @@ def main(argv=None) -> int:
                 fields = time_scdm_bwd(*ops, args.reps, **override)
                 print(f'[K5 bwd] B={B} T={T} N={N} Dh={Dh} '
                       f'override={bool(override)} '
+                      + ' '.join(f'{k}={v}' for k, v in fields.items()),
+                      flush=True)
+            del ops
+        return 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor = sms * SFU_OPS_PER_SM_CLOCK * BOOST_HZ / TANH_SFU_OPS
+    if args.term_rate:
+        rates = term_rates(sms)
+        for mode, (rate, clock) in rates.items():
+            name = 'term_code' if mode == 0 else 'ex2_rcp_only'
+            print(f'[term rate] {name} terms_per_s={rate:.4e} '
+                  f'of_published_sfu_floor={rate / floor:.3f} '
+                  f'sm_clock={clock!r}', flush=True)
+        for B, T, N, Dh, Ds, _ in BF16_CASES:
+            terms = B * T * -(-N // 16) * 16 * Dh
+            print(f'[term rate] B={B} T={T} N={N} Dh={Dh} '
+                  f'term_code_ms={terms / rates[0][0] * 1e3:.4f}', flush=True)
+        return 0
+    if args.precision == 'bf16':
+        for B, T, N, Dh, Ds, keep_p in BF16_CASES:
+            ops = operands(B, T, N, Dh, Ds, 'cuda')
+            reps = args.reps if B * T <= 8192 else 3
+            for rows in [None] + ([8, 16, 32] if args.sweep else []):
+                fields = time_scdm_bf16(ops, keep_p, reps, rows)
+                print(f'[K2 bf16] B={B} T={T} N={N} Dh={Dh} Ds={Ds} '
+                      f'keep_p={keep_p} override={rows is not None} '
                       + ' '.join(f'{k}={v}' for k, v in fields.items()),
                       flush=True)
             del ops

@@ -3,8 +3,9 @@
 Counterpart of ``shufflingvideosfortsg_tpu/ops/pallas/scdm_fused.py``
 ``scdm_attention_fused`` (K2) and ``scdm_attention_fused_trainable`` (K5),
 and of their plain formulation ``ops/attention.py::scdm_attention``. The
-CUDA kernels are in ``csrc/scdm.cu``: the forward (``scdm_fwd_kernel``,
-its tile of rows planned by :func:`_scdm_plan`), and K5's backward
+CUDA kernels are in ``csrc/scdm.cu``: the forward (``scdm_fwd_kernel`` in
+f32, ``scdm_fwd_mma_kernel`` on the tensor cores in bf16, their tiles of
+rows planned by :func:`_scdm_plan`), and K5's backward
 (``scdm_bwd_kernel``, its blocks planned by :func:`_scdm_bwd_plan`).
 :func:`scdm_attention_plain` is the broadcast-tanh version in PyTorch,
 and :func:`scdm_attention_bwd_plain` its gradients written out; the
@@ -24,9 +25,12 @@ from .. import _kernels
 
 Tensor = torch.Tensor
 
-# the tiles of rows t a forward block may take, largest first (the kernel
-# takes any multiple of 4 up to 32)
+# the tiles of rows t a forward block may take, largest first: the f32
+# kernel takes any multiple of 4 up to 32; the bf16 tensor-core kernel
+# whole row groups of 4 rows for its 8 warps (2, 4 or 8 groups, the warps
+# of a group splitting k), each row's words in whole m16 tiles
 _FWD_ROWS = (32, 16, 8, 4)
+_MMA_ROWS = (32, 16, 8)
 # the columns k a backward block may take, and its tiles of rows t, largest
 # first; the plan asks for one block an SM at least: on an H100 the widest
 # blocks that give every SM one or two ran fastest, ahead of more, narrower
@@ -107,31 +111,40 @@ class ScdmPlan(NamedTuple):
 
 def _scdm_plan(B: int, T: int, N: int, sms: int,
                smem_bytes: Callable[[int], int],
-               smem_cap: int = _kernels.MAX_SMEM_BYTES) -> ScdmPlan:
-    """The forward launch at (B, T, N) on a card of ``sms`` SMs that gives
-    a block ``smem_cap`` bytes of shared memory, where a block of ``rows``
-    rows at this N takes ``smem_bytes(rows)`` bytes (the kernel's layout,
+               smem_cap: int = _kernels.MAX_SMEM_BYTES,
+               elem_bytes: int = 4) -> ScdmPlan:
+    """The forward launch at (B, T, N) with inputs of ``elem_bytes``
+    bytes (f32 4: ``scdm_fwd_kernel``; bf16 2: ``scdm_fwd_mma_kernel``) on
+    a card of ``sms`` SMs that gives a block ``smem_cap`` bytes of shared
+    memory, where a block of ``rows`` rows at this N takes
+    ``smem_bytes(rows)`` bytes (the kernel's layout,
     :func:`_scdm_smem_bytes`; negative where it takes no such tile): of the
-    tiles of 32, 16, 8 and 4 rows whose shared memory fits, the largest
-    whose grid gives the card at least two blocks an SM and whose rows are
-    less than half empty (rows < 2 T), else the smallest. Raises where none
+    kernel's tiles (f32 32, 16, 8 and 4 rows; bf16 32, 16 and 8) whose
+    shared memory fits, the largest whose grid gives the card at least
+    ``per_sm`` blocks an SM and whose rows are less than half empty
+    (rows < 2 T), else the smallest. ``per_sm`` is 2 for the f32 kernel
+    and 1 for the tensor-core kernel: on an H100 its larger tiles ran
+    faster down to one block an SM (16 rows at B=32, 32 at B=64; PERF.md
+    §6), since a smaller tile repeats the block's fixed work (staging
+    sent_proj, the softmax, the context) for fewer rows. Raises where none
     fits."""
-    smem = {r: smem_bytes(r) for r in _FWD_ROWS}
-    fits = [r for r in _FWD_ROWS if 0 < smem[r] <= smem_cap]
+    tiles, per_sm = (_FWD_ROWS, 2) if elem_bytes == 4 else (_MMA_ROWS, 1)
+    smem = {r: smem_bytes(r) for r in tiles}
+    fits = [r for r in tiles if 0 < smem[r] <= smem_cap]
     if not fits or sms < 1:
         raise ValueError(f'scdm_attention_fused: no tile of rows fits '
                          f'{smem_cap} bytes of shared memory at N={N} on '
                          f'{sms} SMs')
     rows = next((r for r in fits
-                 if -(-T // r) * B >= 2 * sms and r < 2 * T), fits[-1])
+                 if -(-T // r) * B >= per_sm * sms and r < 2 * T), fits[-1])
     return ScdmPlan(rows, -(-T // rows) * B, smem[rows])
 
 
 def _scdm_smem_bytes(rows: int, N: int, elem_bytes: int = 4) -> int:
     """Shared memory of a forward block of ``rows`` rows at N words with
-    inputs of ``elem_bytes`` bytes (f32 4, bf16 2), as ``csrc/scdm.cu``
-    lays it out (``svtsg_scdm_smem_bytes``); -1 where the kernel takes no
-    tile of ``rows`` rows."""
+    inputs of ``elem_bytes`` bytes (f32 4, bf16 2: the tensor-core
+    kernel), as ``csrc/scdm.cu`` lays it out (``svtsg_scdm_smem_bytes``);
+    -1 where the kernel takes no tile of ``rows`` rows."""
     return _kernels.library().svtsg_scdm_smem_bytes(rows, N, elem_bytes)
 
 
@@ -146,14 +159,16 @@ def _scdm_rows(B: int, T: int, N: int, device: int,
     """The rows a block of the forward launch at (B, T, N) with inputs of
     ``elem_bytes`` bytes on the card ``device`` takes."""
     return _scdm_plan(B, T, N, _sm_count(device),
-                      lambda rows: _scdm_smem_bytes(rows, N, elem_bytes)).rows
+                      lambda rows: _scdm_smem_bytes(rows, N, elem_bytes),
+                      elem_bytes=elem_bytes).rows
 
 
 def _launch_forward(args, want_p: bool) -> Tuple[Tensor, Optional[Tensor]]:
-    """One launch of ``scdm_fwd_kernel`` on CUDA tensors over the planned
-    tiles of rows; returns (C in the inputs' dtype, P or None). P
-    [B, T, N] is allocated and written only when asked for (K5's forward):
-    the f32 softmax, which in bf16 the kernel rounds only for C."""
+    """One launch of the forward kernel (f32 ``scdm_fwd_kernel``, bf16
+    ``scdm_fwd_mma_kernel``) on CUDA tensors over the planned tiles of
+    rows; returns (C in the inputs' dtype, P or None). P [B, T, N] is
+    allocated and written only when asked for (K5's forward): the f32
+    softmax, which in bf16 the kernel rounds only for C."""
     B, T, N, Dh, Ds = _check_inputs(*args)
     dt = args[0].dtype
     dev = _cuda_device('scdm_attention_fused', args)
@@ -182,12 +197,14 @@ def scdm_attention_fused(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     N word slots, padded slots included (the reference's quirk).
 
     CPU tensors take :func:`scdm_attention_plain`. CUDA tensors launch
-    ``scdm_fwd_kernel`` (``csrc/scdm.cu``) once or raise: it takes
-    contiguous inputs of one dtype on one card, at any N, Dh and Ds. A
-    block takes a tile of rows t of one batch row (:func:`_scdm_plan`),
-    streams k through shared memory with each thread keeping 2 rows x 4
-    words of logits, and runs the softmax and the context product from
-    shared memory; the sums run in a fixed order, so two runs give equal
+    one kernel of ``csrc/scdm.cu`` once or raise: contiguous inputs of one
+    dtype on one card, at any N, Dh and Ds. A block takes a tile of rows t
+    of one batch row (:func:`_scdm_plan`), streams k through shared memory
+    and runs the softmax and the context product from shared memory. In
+    f32 (``scdm_fwd_kernel``) each thread keeps 2 rows x 4 words of
+    logits; in bf16 (``scdm_fwd_mma_kernel``) the terms stay packed in
+    pairs and the logits and the context are ``mma.sync`` products on the
+    tensor cores. The sums run in a fixed order, so two runs give equal
     bits. It has no backward: call it with gradients off, or call
     :func:`scdm_attention_fused_trainable`.
     """
@@ -222,6 +239,50 @@ def forward_tanh(x: Tensor) -> Tensor:
         _stream(x.device))
     _kernels.check(err, 'forward_tanh')
     return y
+
+
+class TermCheck(NamedTuple):
+    """The exhaustive checks of the bf16 kernel's per-term roundings
+    (:func:`term_check`)."""
+    sum_mismatches: int
+    pairs_checked: int
+    tanh_mismatches: int
+    values_checked: int
+    off_torch_tanh: int
+
+
+def term_check(device) -> TermCheck:
+    """Run ``scdm_fwd_mma_kernel``'s own device code for its two per-term
+    roundings over every input on the card ``device``: the packed sum
+    against bf16(f32(vp) + f32(sp)) over all pairs of finite bf16, each in
+    both halves of a bf16x2 (``sum_mismatches`` of ``pairs_checked``
+    pairs, halves counted), and the packed a against bf16(tanh_fwd(s)) over
+    all 65,536 bf16 bit patterns s (``tanh_mismatches`` of
+    ``values_checked`` halves; NaN equal to NaN). ``off_torch_tanh`` counts
+    the s (NaN left out) whose a lies more than one bf16 ulp from
+    bf16(torch.tanh(s)) computed on the card in f32. The checks run only
+    on a card: there is no plain version of a kernel's rounding."""
+    dev = torch.device(device)
+    if dev.type != 'cuda':
+        raise ValueError(f'term_check runs on a CUDA device, got {dev}')
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    a = torch.empty(1 << 16, dtype=torch.bfloat16, device=dev)
+    err = _kernels.library().svtsg_scdm_term_check(
+        counts.data_ptr(), a.data_ptr(), _device_index(dev), _stream(dev))
+    _kernels.check(err, 'term_check')
+    codes = torch.arange(1 << 16, dtype=torch.int32, device=dev)
+    s = torch.where(codes >= 1 << 15, codes - (1 << 16), codes).to(
+        torch.int16).view(torch.bfloat16)
+    ref = torch.tanh(s.float()).bfloat16()
+
+    def ordered(x: Tensor) -> Tensor:  # bf16 bits as a monotone integer
+        i = x.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7fff), i)
+
+    nan = torch.isnan(a) | torch.isnan(ref)
+    off = ((ordered(a) - ordered(ref)).abs() > 1) & ~nan
+    n = counts.tolist()
+    return TermCheck(n[0], n[1], n[2], n[3], int(off.sum()))
 
 
 def scdm_attention_bwd_core_plain(video_proj: Tensor, sent_proj: Tensor,

@@ -97,10 +97,10 @@ def card_line() -> str:
 
 # device kernels by group: cuBLAS's matrix products (its f32 kernels are
 # sm80_xmma_gemm_*, its bf16 ones on an H100 nvjet_*), K1 (at bf16 W_hh and
-# H=256 lstm_fwd_mma_kernel), K2
+# H=256 lstm_fwd_mma_kernel), K2 (at bf16 scdm_fwd_mma_kernel)
 GROUPS = (('gemm', ('gemm', 'cutlass', 'xmma', 'cublas', 'nvjet')),
           ('K1', ('lstm_fwd_kernel', 'lstm_fwd_mma_kernel')),
-          ('K2', ('scdm_fwd_kernel',)))
+          ('K2', ('scdm_fwd_kernel', 'scdm_fwd_mma_kernel')))
 
 
 def grouped_ms(kernels, n: int) -> dict:

@@ -65,13 +65,13 @@ BANK_STEPS = 64  # the --banked epoch
 BANK_CHUNK = 16  # train_scan_chunk of its graphed mode
 
 # kernel-name patterns of the groups a step's device time is split into
-# (at bf16 the forward, K4's recurrence and the weight gradient run their
-# *_mma_kernel)
+# (at bf16 the forward, K4's recurrence, the weight gradient and K2 run
+# their *_mma_kernel)
 GROUPS = (('K3 lstm_fwd_kernel', ('lstm_fwd_kernel', 'lstm_fwd_mma_kernel')),
           ('K4 lstm_bwd_kernel', ('lstm_bwd_kernel', 'lstm_bwd_mma_kernel')),
           ('K4 lstm_weight_grad_kernel', ('lstm_weight_grad_kernel',
                                           'lstm_weight_grad_mma_kernel')),
-          ('K2 scdm_fwd_kernel', ('scdm_fwd_kernel',)),
+          ('K2 scdm_fwd_kernel', ('scdm_fwd_kernel', 'scdm_fwd_mma_kernel')),
           ('K5 scdm_bwd_kernel', ('scdm_bwd_kernel',)),
           ('GEMMs', ('gemm', 'Gemm', 'gemv', 'cutlass', 'xmma', 'nvjet',
                      'dot_kernel')),

@@ -217,6 +217,110 @@ def test_scdm_plan_shrinks_the_tile_to_fit_shared_memory():
         S._scdm_plan(8, 128, 15, H100_SMS, _stand_in_smem(15), smem_cap=1024)
 
 
+def _stand_in_mma_smem(N):
+    """A bf16 tensor-core block's shared memory for the plan's tests on the
+    CPU: it grows with the rows and the words as the kernel's layout does
+    (``svtsg_scdm_smem_bytes`` at 2 bytes, held by the CUDA test below),
+    and the kernel takes no tile but 8, 16 and 32 rows."""
+    return lambda rows: (20_000 + 500 * rows + 6 * rows * N
+                         if rows in (8, 16, 32) else -1)
+
+
+@pytest.mark.parametrize('sms', [132, 114, 1])
+@pytest.mark.parametrize('B,T,N', PLAN_SHAPES + [(512, 1024, 15)])
+def test_scdm_mma_plan_covers_t_with_whole_row_groups(B, T, N, sms):
+    """At bf16 the tiles are whole row groups of 4 rows for each of the
+    kernel's 8 warps (8, 16 or 32 rows; each row's words in whole m16
+    tiles), cover T, and fit the reported shared memory."""
+    smem = _stand_in_mma_smem(N)
+    plan = S._scdm_plan(B, T, N, sms, smem, elem_bytes=2)
+    assert S._MMA_ROWS == (32, 16, 8) and plan.rows in S._MMA_ROWS
+    assert plan.rows % 4 == 0 and 8 % (plan.rows // 4) == 0
+    tiles = -(-T // plan.rows)
+    assert tiles * plan.rows >= T > (tiles - 1) * plan.rows
+    assert plan.blocks == tiles * B
+    assert plan.smem_bytes == smem(plan.rows) <= _kernels.MAX_SMEM_BYTES
+    larger = [r for r in S._MMA_ROWS if r > plan.rows]
+    for r in larger:
+        assert -(-T // r) * B < sms or r >= 2 * T
+    if plan.rows != min(S._MMA_ROWS):
+        assert plan.blocks >= sms
+
+
+@pytest.mark.parametrize('B,T,N,rows', [(32, 128, 15, 16), (64, 128, 15, 32),
+                                        (32, 128, 25, 16), (32, 128, 33, 16),
+                                        (256, 128, 15, 32),
+                                        (512, 1024, 15, 32)])
+def test_scdm_mma_plan_gives_the_main_shapes_two_blocks_an_sm(B, T, N, rows):
+    """Evaluation (B=32), K5's forward (B=64), the graphed tick (B=256)
+    and the served batch (B=512, T=1024) at bf16: the largest tile whose
+    grid still gives each of an H100's SMs a block. The kernel holds two
+    blocks an SM, so at B=32 and 64 the grid (256 blocks) is one wave of
+    them and every SM but 8 takes two; at B=256 and the served batch the
+    grid spans 4 and 62 such waves. (On an H100 the tiles of half the
+    rows, which give two waves at B=32 and 64, ran slower: PERF.md §6,
+    ``measure_scdm --precision bf16 --sweep``.)"""
+    plan = S._scdm_plan(B, T, N, H100_SMS, _stand_in_mma_smem(N),
+                        elem_bytes=2)
+    assert plan.blocks >= H100_SMS
+    assert -(-plan.blocks // H100_SMS) >= 2
+    assert plan.rows == rows
+
+
+def test_scdm_mma_plan_raises_where_nothing_fits():
+    N = 3000  # the [rows, N] logits and P outgrow the shared memory
+    smem = _stand_in_mma_smem(N)
+    assert smem(32) > _kernels.MAX_SMEM_BYTES >= smem(8)
+    assert S._scdm_plan(1000, 128, N, H100_SMS, smem, elem_bytes=2).rows == 8
+    with pytest.raises(ValueError, match='shared memory'):
+        S._scdm_plan(8, 128, 100000, H100_SMS, _stand_in_mma_smem(100000),
+                     elem_bytes=2)
+    with pytest.raises(ValueError, match='shared memory'):
+        S._scdm_plan(8, 128, 15, H100_SMS, _stand_in_mma_smem(15),
+                     smem_cap=1024, elem_bytes=2)
+    # a tile of 4 rows, which the f32 kernel takes, is never planned at bf16
+    with pytest.raises(ValueError, match='shared memory'):
+        S._scdm_plan(8, 4, 15, H100_SMS,
+                     lambda rows: 40_000 if rows == 4 else -1, elem_bytes=2)
+
+
+@pytest.mark.requires_cuda
+def test_scdm_mma_smem_bytes_and_plan_on_cuda():
+    """The tensor-core kernel's own layout (``svtsg_scdm_smem_bytes`` at 2
+    bytes): tiles of 8, 16 and 32 rows only, growing with the rows and the
+    words, two blocks an SM at the main shapes, and the plan within the
+    card's shared memory at every shape."""
+    for N in (1, 15, 17, 33, 70, 1500):
+        sizes = [S._scdm_smem_bytes(r, N, 2) for r in (8, 16, 32)]
+        assert all(0 < a < b for a, b in zip(sizes, sizes[1:]))
+    for rows in (0, 4, 12, 24, 64):
+        assert S._scdm_smem_bytes(rows, 15, 2) == -1
+    assert S._scdm_smem_bytes(16, 15, 2) < S._scdm_smem_bytes(16, 40, 2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, T, N in PLAN_SHAPES + [(512, 1024, 15)]:
+        plan = S._scdm_plan(B, T, N, sms,
+                            lambda rows: S._scdm_smem_bytes(rows, N, 2),
+                            elem_bytes=2)
+        assert 0 < plan.smem_bytes <= _kernels.MAX_SMEM_BYTES
+        if N <= 33:
+            assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+
+
+@pytest.mark.requires_cuda
+def test_scdm_term_roundings_are_the_contracts_at_every_input_on_cuda():
+    """The bf16 kernel's own packed sum and packed a over every input: the
+    sum equals bf16(f32(vp) + f32(sp)) for all pairs of finite bf16, and a
+    equals bf16(tanh_fwd(s)) for all 65,536 bf16 s (K5's backward
+    recomputes a with tanh_fwd); a lies within one bf16 ulp of
+    bf16(torch.tanh(s)) wherever tanh_fwd's few f32 ulps allow."""
+    check = S.term_check('cuda')
+    assert check.pairs_checked == 65280 ** 2
+    assert check.values_checked == 2 * 65536
+    assert check.sum_mismatches == 0
+    assert check.tanh_mismatches == 0
+    assert check.off_torch_tanh == 0
+
+
 @pytest.mark.requires_cuda
 def test_scdm_smem_bytes_and_plan_on_cuda():
     """The kernel's own layout (``svtsg_scdm_smem_bytes``): it grows with
@@ -465,6 +569,10 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
 # to bf16 (one ulp of a value is at most 2^-7 of it): held to 4 ulps of
 # the largest |C|
 K2_BF16_CUDA_SHARE = 2.0 ** -6
+# the kept P is the f32 softmax: a P rounded to bf16 is a bf16 value at
+# every entry, an f32 softmax at about one entry in 2^16 (chip_smoke.py's
+# P_BF16_VALUES_SHARE)
+P_BF16_VALUES_SHARE = 2.0 ** -7
 
 
 @pytest.mark.requires_cuda
@@ -473,7 +581,10 @@ K2_BF16_CUDA_SHARE = 2.0 ** -6
                                          (8, 128, 40, 2048, 2048),
                                          (5, 37, 17, 300, 256),
                                          (3, 37, 17, 301, 255),
-                                         (2, 21, 70, 128, 96)])
+                                         (2, 21, 70, 128, 96),
+                                         (4, 40, 25, 512, 512),
+                                         (3, 37, 33, 256, 129),
+                                         (3, 20, 15, 64, 65)])
 def test_scdm_kernel_bf16_matches_plain_on_cuda(B, T, N, Dh, Ds):
     args = [torch.from_numpy(a).cuda().bfloat16()
             for a in _scdm_inputs(N, B, T, N, Dh, Ds)]
@@ -495,6 +606,8 @@ def test_scdm_kernel_bf16_matches_plain_on_cuda(B, T, N, Dh, Ds):
                                         args[2].float()).bfloat16().float(),
                            -1)
     assert (P - want_p).abs().max().item() <= K2_BF16_CUDA_SHARE
+    bf16_values = (P.view(torch.int32) & 0xffff) == 0
+    assert bf16_values.float().mean().item() <= P_BF16_VALUES_SHARE
 
 
 # K3 and K4 at bf16 (xw, W_hh, out and d_out bf16): as K1, a sum in another
