@@ -53,7 +53,8 @@ _SIGNATURES = {
     'svtsg_lstm_weight_grad_active_clusters': [_I] * 5,
     'svtsg_scdm_attention': [_P] * 6 + [_I] * 8 + [_P],
     'svtsg_scdm_bwd': [_P] * 8 + [_I] * 10 + [_P],
-    'svtsg_scdm_bwd_smem_bytes': [_I] * 3,
+    'svtsg_scdm_bwd_smem_bytes': [_I] * 4,
+    'svtsg_scdm_bwd_term_check': [_P, _I, _P],
     'svtsg_scdm_smem_bytes': [_I] * 3,
     'svtsg_scdm_tanh': [_P] * 2 + [_I] * 2 + [_P],
     'svtsg_scdm_term_check': [_P] * 2 + [_I, _P],
@@ -86,10 +87,16 @@ def build() -> Tuple[str, float, str]:
     """Compile and link the kernels unless this exact build exists.
 
     Returns (library path, build seconds, compiler output); the seconds
-    are 0 when the library was already there."""
+    are 0 when the library was already there, and the output then the one
+    its build saved beside it (empty where there is none)."""
     lib_path = os.path.join(BUILD_DIR, f'libsvtsg_kernels_{_digest()}.so')
+    log_path = f'{lib_path}.log'
     if os.path.isfile(lib_path):
-        return lib_path, 0.0, ''
+        saved = ''
+        if os.path.isfile(log_path):
+            with open(log_path) as f:
+                saved = f.read()
+        return lib_path, 0.0, saved
     nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
@@ -118,6 +125,9 @@ def build() -> Tuple[str, float, str]:
                               stderr=subprocess.STDOUT, text=True)
         if link.returncode:
             raise RuntimeError(f'nvcc link failed:\n{link.stdout}')
+        with open(f'{log_path}.{tag}.tmp', 'w') as f:
+            f.write('\n'.join(logs))
+        os.replace(f'{log_path}.{tag}.tmp', log_path)
         os.replace(tmp, lib_path)  # atomic: concurrent builds agree
     finally:
         for obj in objs:

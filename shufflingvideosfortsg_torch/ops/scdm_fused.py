@@ -6,7 +6,8 @@ and of their plain formulation ``ops/attention.py::scdm_attention``. The
 CUDA kernels are in ``csrc/scdm.cu``: the forward (``scdm_fwd_kernel`` in
 f32, ``scdm_fwd_mma_kernel`` on the tensor cores in bf16, their tiles of
 rows planned by :func:`_scdm_plan`), and K5's backward
-(``scdm_bwd_kernel``, its blocks planned by :func:`_scdm_bwd_plan`).
+(``scdm_bwd_kernel`` in f32, ``scdm_bwd_bf16x2_kernel`` on bf16x2 pairs
+of columns in bf16, their blocks planned by :func:`_scdm_bwd_plan`).
 :func:`scdm_attention_plain` is the broadcast-tanh version in PyTorch,
 and :func:`scdm_attention_bwd_plain` its gradients written out; the
 wrappers take them for CPU tensors, and the card's checks hold the kernels
@@ -32,11 +33,15 @@ Tensor = torch.Tensor
 _FWD_ROWS = (32, 16, 8, 4)
 _MMA_ROWS = (32, 16, 8)
 # the columns k a backward block may take, and its tiles of rows t, largest
-# first; the plan asks for one block an SM at least: on an H100 the widest
-# blocks that give every SM one or two ran fastest, ahead of more, narrower
-# blocks or more spans (PERF.md §6)
+# first (the bf16 kernel takes multiples of 4 rows); the plan asks for one
+# block an SM at least: on an H100 the widest blocks that give every SM
+# one or two ran fastest, ahead of more, narrower blocks or more spans
+# (PERF.md §6)
 _BWD_COLS = (256, 128, 64, 32)
 _BWD_ROWS = (32, 16, 8, 4)
+# bf16: 256 columns need two spans at B=64, Dh=512, and the sum of the
+# spans' partials of d_sent_proj cost more than the wider blocks gained
+_BWD2_WIDEST = 128
 
 
 # the kernels' dtype codes (csrc/common.cuh: kF32, kBF16)
@@ -285,12 +290,44 @@ def term_check(device) -> TermCheck:
     return TermCheck(n[0], n[1], n[2], n[3], int(off.sum()))
 
 
+class BwdTermCheck(NamedTuple):
+    """The exhaustive checks of the bf16 backward kernel's packed
+    operations (:func:`bwd_term_check`)."""
+    mul_mismatches: int
+    mul_pairs_checked: int
+    add_mismatches: int
+    add_pairs_checked: int
+    one_minus_mismatches: int
+    one_minus_checked: int
+
+
+def bwd_term_check(device) -> BwdTermCheck:
+    """Run ``scdm_bwd_bf16x2_kernel``'s own device code for its packed
+    roundings over every input on the card ``device``: the packed product
+    against bf16(f32(x) f32(y)) and the packed sum against bf16(f32(x) +
+    f32(y)) over all pairs of finite bf16, each pair in both halves of a
+    bf16x2 (mismatching halves of pairs checked), and the packed 1 - a
+    against bf16(1 - f32(a)) over all 65,536 bf16 bit patterns a (a in one
+    half, -a in the other; NaN equal to NaN). Its two other roundings are
+    the forward's term code, which :func:`term_check` covers. Bits are
+    compared: -0 is not +0. Runs only on a card."""
+    dev = torch.device(device)
+    if dev.type != 'cuda':
+        raise ValueError(f'bwd_term_check runs on a CUDA device, got {dev}')
+    counts = torch.zeros(6, dtype=torch.int64, device=dev)
+    err = _kernels.library().svtsg_scdm_bwd_term_check(
+        counts.data_ptr(), _device_index(dev), _stream(dev))
+    _kernels.check(err, 'bwd_term_check')
+    return BwdTermCheck(*counts.tolist())
+
+
 def scdm_attention_bwd_core_plain(video_proj: Tensor, sent_proj: Tensor,
                                   w: Tensor, P: Tensor, dP: Tensor,
                                   tanh: Callable[[Tensor], Tensor] = torch.tanh
                                   ) -> Tuple[Tensor, Tensor, Tensor]:
-    """The part of the backward that ``scdm_bwd_kernel`` computes, as
-    PyTorch operations: from the softmax P [B, T, N] and its cotangent dP,
+    """The part of the backward that the backward kernels compute
+    (``scdm_bwd_kernel``, ``scdm_bwd_bf16x2_kernel``), as PyTorch
+    operations: from the softmax P [B, T, N] and its cotangent dP,
     dl = P (dP - sum_n P dP), then with a = tanh(vp[b,t] + sp[b,n])
     (materialised here, [B, T, N, Dh]) d_video_proj = w sum_n dl (1 - a^2),
     d_sent_proj = w sum_t dl (1 - a^2) and d_w = sum_{b,t,n} dl a. ``tanh``
@@ -362,24 +399,31 @@ def _scdm_bwd_plan(B: int, T: int, N: int, Dh: int, sms: int,
                    smem_bytes: Callable[[int, int], int],
                    smem_cap: int = _kernels.MAX_SMEM_BYTES,
                    cols: Optional[int] = None,
-                   spans: Optional[int] = None) -> ScdmBwdPlan:
-    """The backward launch at (B, T, N, Dh) on a card of ``sms`` SMs that
-    gives a block ``smem_cap`` bytes of shared memory, where a block of
-    ``cols`` columns over tiles of ``rows`` rows takes ``smem_bytes(rows,
-    cols)`` bytes at this N (the kernel's layout, :func:`_scdm_bwd_smem_bytes`;
-    negative where it takes no such block).
+                   spans: Optional[int] = None,
+                   elem_bytes: int = 4) -> ScdmBwdPlan:
+    """The backward launch at (B, T, N, Dh) with inputs of ``elem_bytes``
+    bytes (f32 4: ``scdm_bwd_kernel``; bf16 2: ``scdm_bwd_bf16x2_kernel``)
+    on a card of ``sms`` SMs that gives a block ``smem_cap`` bytes of
+    shared memory, where a block of ``cols`` columns over tiles of ``rows``
+    rows takes ``smem_bytes(rows, cols)`` bytes at this N (the kernel's
+    layout, :func:`_scdm_bwd_smem_bytes`; negative where it takes no such
+    block).
 
-    Columns: of 256, 128, 64 and 32, the largest whose blocks (one a batch
-    row and chunk of columns) give every SM one and whose columns are less than half empty (cols < 2 Dh), else the
-    smallest. Rows: the largest tile of 32, 16, 8 or 4 rows that fits at
-    those columns and is less than half empty (rows < 2 T), else the
-    smallest that fits. Spans of t (whole tiles, one a block) are added
+    Columns: of 256 (f32 only), 128, 64 and 32, the largest whose blocks
+    (one a batch row and chunk of columns; at bf16 over up to two spans of
+    t) give every SM one and whose columns are less than half empty (cols
+    < 2 Dh), else the smallest. Rows: the largest tile of 32, 16, 8 or 4
+    rows that fits at those columns and is less than half empty (rows <
+    2 T), else the smallest that fits. Spans of t (whole tiles, one a block) are added
     until the grid gives every SM a block, at most one a tile: one span
     where the columns alone get there, so that d_sent_proj needs no sum
     across blocks. Wide blocks form dl once for more columns; on an H100
-    they ran fastest (PERF.md §6). ``cols`` and ``spans`` override the
+    they ran fastest, and at bf16 128 columns over two spans ahead of 64
+    over one (PERF.md §6). ``cols`` and ``spans`` override the
     choice (for measurements). Raises where no block fits."""
-    choices = [c for c in _BWD_COLS if cols is None or c == cols]
+    widest = _BWD_COLS[0] if elem_bytes == 4 else _BWD2_WIDEST
+    choices = [c for c in _BWD_COLS
+               if c == cols or (cols is None and c <= widest)]
     fit = {}
     for c in choices:
         for r in _BWD_ROWS:
@@ -391,9 +435,11 @@ def _scdm_bwd_plan(B: int, T: int, N: int, Dh: int, sms: int,
                          f'fits {smem_cap} bytes of shared memory at N={N} '
                          f'on {sms} SMs')
     target = sms
+    reach = 1 if elem_bytes == 4 else 2  # spans a choice of columns may take
     usable = [c for c in choices if any((c, r) in fit for r in _BWD_ROWS)]
     col = next((c for c in usable
-                if B * -(-Dh // c) >= target and c < 2 * Dh), usable[-1])
+                if reach * B * -(-Dh // c) >= target and c < 2 * Dh),
+               usable[-1])
     chunks = B * -(-Dh // col)
     row_opts = [r for r in _BWD_ROWS if (col, r) in fit]
     rows = next((r for r in row_opts if r < 2 * T), row_opts[-1])
@@ -406,23 +452,29 @@ def _scdm_bwd_plan(B: int, T: int, N: int, Dh: int, sms: int,
                        fit[col, rows])
 
 
-def _scdm_bwd_smem_bytes(rows: int, cols: int, N: int) -> int:
+def _scdm_bwd_smem_bytes(rows: int, cols: int, N: int,
+                         elem_bytes: int = 4) -> int:
     """Shared memory of a backward block of ``cols`` columns over tiles of
-    ``rows`` rows at N words, as ``csrc/scdm.cu`` lays it out
-    (``svtsg_scdm_bwd_smem_bytes``); -1 where the kernel takes no such
+    ``rows`` rows at N words with inputs of ``elem_bytes`` bytes (f32 4,
+    bf16 2: the bf16x2 kernel's own layout), as ``csrc/scdm.cu`` lays it
+    out (``svtsg_scdm_bwd_smem_bytes``); -1 where the kernel takes no such
     block."""
-    return _kernels.library().svtsg_scdm_bwd_smem_bytes(rows, cols, N)
+    return _kernels.library().svtsg_scdm_bwd_smem_bytes(rows, cols, N,
+                                                        elem_bytes)
 
 
 @functools.lru_cache(maxsize=None)
 def _scdm_bwd_launch(B: int, T: int, N: int, Dh: int, device: int,
                      cols: Optional[int] = None,
-                     spans: Optional[int] = None) -> ScdmBwdPlan:
-    """The backward launch at (B, T, N, Dh) on the card ``device``;
-    ``cols`` and ``spans`` override the plan's choice (for measurements)."""
-    return _scdm_bwd_plan(B, T, N, Dh, _sm_count(device),
-                          lambda rows, c: _scdm_bwd_smem_bytes(rows, c, N),
-                          cols=cols, spans=spans)
+                     spans: Optional[int] = None,
+                     elem_bytes: int = 4) -> ScdmBwdPlan:
+    """The backward launch at (B, T, N, Dh) with inputs of ``elem_bytes``
+    bytes on the card ``device``; ``cols`` and ``spans`` override the
+    plan's choice (for measurements)."""
+    return _scdm_bwd_plan(
+        B, T, N, Dh, _sm_count(device),
+        lambda rows, c: _scdm_bwd_smem_bytes(rows, c, N, elem_bytes),
+        cols=cols, spans=spans, elem_bytes=elem_bytes)
 
 
 def scdm_attention_bwd_core(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
@@ -432,8 +484,9 @@ def scdm_attention_bwd_core(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     forward's inputs, its softmax P (f32) and dP, as
     :func:`scdm_attention_bwd_core_plain`, which CPU tensors take; the
     results in the inputs' dtype. video_proj, sent_proj, w and dP are all
-    f32 or all bf16. CUDA tensors launch ``scdm_bwd_kernel`` once or raise
-    (contiguous, on one card, any shape), with the blocks
+    f32 or all bf16. CUDA tensors launch one kernel once or raise
+    (contiguous, on one card, any shape and alignment): f32
+    ``scdm_bwd_kernel``, bf16 ``scdm_bwd_bf16x2_kernel``, with the blocks
     :func:`_scdm_bwd_plan` picks. The partial sums over spans of t and
     batch rows are added in a fixed order, so two runs give equal bits."""
     dt = video_proj.dtype
@@ -451,31 +504,42 @@ def scdm_attention_bwd_core(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     if all(a.device.type == 'cpu' for a in args):
         return scdm_attention_bwd_core_plain(*args)
     dev = _cuda_device('scdm_attention_bwd', args)
-    return _launch_backward(args, _scdm_bwd_launch(B, T, N, Dh,
-                                                   _device_index(dev)))
+    return _launch_backward(args, _scdm_bwd_launch(
+        B, T, N, Dh, _device_index(dev), elem_bytes=dt.itemsize))
 
 
-def _launch_backward(args: Tuple[Tensor, ...], plan: ScdmBwdPlan
-                     ) -> Tuple[Tensor, Tensor, Tensor]:
-    """``scdm_bwd_kernel`` once over the checked CUDA ``args`` (video_proj,
-    sent_proj, w, P, dP) with the blocks of ``plan``, and the fixed-order
-    sums of its f32 partials, rounded to the inputs' dtype."""
+def _bwd_partials(args: Tuple[Tensor, ...], plan: ScdmBwdPlan,
+                  outs: Optional[Tuple[Tensor, Tensor, Tensor]] = None
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward kernel of the inputs' dtype once over the checked CUDA
+    ``args`` (video_proj, sent_proj, w, P, dP) with the blocks of
+    ``plan``, into ``outs`` (allocated where None): its f32 d_vp
+    [B,T,Dh], the spans' partial d_sp [spans,B,N,Dh] and d_w
+    [spans*B,Dh]."""
     dt = args[0].dtype
     B, T, Dh = args[0].shape
     N = args[1].shape[1]
     dev = args[0].device
-    index = _device_index(dev)
-    f32 = dict(device=dev, dtype=torch.float32)
-    d_vp = torch.empty(B, T, Dh, **f32)
-    d_sp = torch.empty(plan.spans, B, N, Dh, **f32)
-    d_w = torch.empty(plan.spans * B, Dh, **f32)
+    if outs is None:
+        f32 = dict(device=dev, dtype=torch.float32)
+        outs = (torch.empty(B, T, Dh, **f32),
+                torch.empty(plan.spans, B, N, Dh, **f32),
+                torch.empty(plan.spans * B, Dh, **f32))
     err = _kernels.library().svtsg_scdm_bwd(
-        *(a.data_ptr() for a in args), d_vp.data_ptr(), d_sp.data_ptr(),
-        d_w.data_ptr(), B, T, N, Dh, plan.cols, plan.rows, plan.spans,
-        plan.t_len, _DTYPE_CODES[dt], index, _stream(dev))
+        *(a.data_ptr() for a in args), *(o.data_ptr() for o in outs), B, T,
+        N, Dh, plan.cols, plan.rows, plan.spans, plan.t_len,
+        _DTYPE_CODES[dt], _device_index(dev), _stream(dev))
     _kernels.check(err, 'scdm_attention_bwd')
+    return outs
+
+
+def _launch_backward(args: Tuple[Tensor, ...], plan: ScdmBwdPlan
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """:func:`_bwd_partials` and the fixed-order sums of its f32 partials,
+    rounded to the inputs' dtype."""
+    d_vp, d_sp, d_w = _bwd_partials(args, plan)
     grads = (d_vp, d_sp[0] if plan.spans == 1 else d_sp.sum(0), d_w.sum(0))
-    return tuple(g.to(dt) for g in grads)
+    return tuple(g.to(args[0].dtype) for g in grads)
 
 
 def scdm_attention_bwd(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
@@ -489,7 +553,7 @@ def scdm_attention_bwd(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     CUDA tensors take P, the forward's f32 softmax, and run dP = dC
     sent_feat^T and d_sent_feat = P^T dC (P rounded to the dtype first) as
     two cuBLAS ``bmm`` (JAX leaves the whole backward to XLA), then
-    ``scdm_bwd_kernel`` for the rest, or raise.
+    :func:`scdm_attention_bwd_core`'s kernel for the rest, or raise.
     ``scdm_attention_fused_trainable.launches`` counts the kernel's
     launches."""
     B, T, _, _, Ds = _check_inputs(video_proj, sent_proj, w, sent_feat)

@@ -66,13 +66,14 @@ BANK_CHUNK = 16  # train_scan_chunk of its graphed mode
 
 # kernel-name patterns of the groups a step's device time is split into
 # (at bf16 the forward, K4's recurrence, the weight gradient and K2 run
-# their *_mma_kernel)
+# their *_mma_kernel, K5's backward scdm_bwd_bf16x2_kernel)
 GROUPS = (('K3 lstm_fwd_kernel', ('lstm_fwd_kernel', 'lstm_fwd_mma_kernel')),
           ('K4 lstm_bwd_kernel', ('lstm_bwd_kernel', 'lstm_bwd_mma_kernel')),
           ('K4 lstm_weight_grad_kernel', ('lstm_weight_grad_kernel',
                                           'lstm_weight_grad_mma_kernel')),
           ('K2 scdm_fwd_kernel', ('scdm_fwd_kernel', 'scdm_fwd_mma_kernel')),
-          ('K5 scdm_bwd_kernel', ('scdm_bwd_kernel',)),
+          ('K5 scdm_bwd_kernel', ('scdm_bwd_kernel',
+                                  'scdm_bwd_bf16x2_kernel')),
           ('GEMMs', ('gemm', 'Gemm', 'gemv', 'cutlass', 'xmma', 'nvjet',
                      'dot_kernel')),
           ('optimizer', ('multi_tensor_apply',)))

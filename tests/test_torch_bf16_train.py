@@ -184,7 +184,8 @@ def test_lstm_recurrence_bf16_matches_lstm_flat_fused_vjp(shape, lstm_refs):
 
 # --- K5 -----------------------------------------------------------------------
 
-K5_SHAPES = [(8, 10, 5, 32, 24), (3, 11, 17, 40, 36), (16, 16, 15, 64, 48)]
+K5_SHAPES = [(8, 10, 5, 32, 24), (3, 11, 17, 40, 36), (16, 16, 15, 64, 48),
+             (2, 9, 25, 33, 20)]
 
 
 @pytest.mark.parametrize('shape', K5_SHAPES)

@@ -8,7 +8,9 @@ run on a machine without JAX:
     python -m pytest --noconftest -m requires_cuda tests/test_torch_kernels.py
 """
 
+import collections
 import math
+import re
 
 import numpy as np
 import pytest
@@ -322,6 +324,20 @@ def test_scdm_term_roundings_are_the_contracts_at_every_input_on_cuda():
 
 
 @pytest.mark.requires_cuda
+def test_scdm_bwd_term_roundings_are_the_contracts_at_every_input_on_cuda():
+    """The bf16 backward kernel's own packed operations over every input:
+    the product equals bf16(f32(x) f32(y)) and the sum bf16(f32(x) +
+    f32(y)) for all pairs of finite bf16, and 1 - a equals bf16(1 -
+    f32(a)) for all 65,536 bf16 a, bit for bit."""
+    check = S.bwd_term_check('cuda')
+    assert check.mul_pairs_checked == check.add_pairs_checked == 65280 ** 2
+    assert check.one_minus_checked == 2 * 65536
+    assert check.mul_mismatches == 0
+    assert check.add_mismatches == 0
+    assert check.one_minus_mismatches == 0
+
+
+@pytest.mark.requires_cuda
 def test_scdm_smem_bytes_and_plan_on_cuda():
     """The kernel's own layout (``svtsg_scdm_smem_bytes``): it grows with
     the rows and the words, takes only multiples of 4 up to 32 rows, lets
@@ -434,6 +450,183 @@ def test_scdm_bwd_plan_shrinks_the_tile_to_fit_shared_memory():
     with pytest.raises(ValueError, match='shared memory'):
         S._scdm_bwd_plan(8, 128, 15, 512, H100_SMS, _stand_in_bwd_smem(15),
                          cols=48)
+
+
+def _stand_in_bwd2_smem(N):
+    """A bf16 backward block's shared memory for the plan's tests on the
+    CPU: the larger of a ring of three stages (rows x cols bf16 of
+    video_proj, the rows of P in f32 and of dP in bf16) and the groups'
+    partial sums (2 KB a word of a pass of up to 16), then dl twice, as the
+    kernel's own layout grows (held on the card below)."""
+    words = -(-N // -(-N // 16))
+    return lambda rows, cols: (max(3 * (2 * rows * cols + 6 * rows * N),
+                                   2048 * words) + 8 * rows * words)
+
+
+@pytest.mark.parametrize('sms', [132, 114, 1])
+@pytest.mark.parametrize('B,T,N,Dh', BWD_PLAN_SHAPES)
+def test_scdm_bwd_bf16_plan_covers_t_and_fits_shared_memory(B, T, N, Dh,
+                                                            sms):
+    """The bf16 kernel's plan: its own columns (up to 512), tiles of 4 to
+    32 rows, spans of whole tiles that cover T, its layout within the
+    card's shared memory, and every SM a block where the shape has the
+    work for it."""
+    smem = _stand_in_bwd2_smem(N)
+    plan = S._scdm_bwd_plan(B, T, N, Dh, sms, smem, elem_bytes=2)
+    assert plan.cols in S._BWD_COLS and plan.rows in S._BWD_ROWS
+    assert plan.t_len % plan.rows == 0
+    assert plan.spans * plan.t_len >= T > (plan.spans - 1) * plan.t_len
+    assert plan.blocks == plan.spans * B * -(-Dh // plan.cols)
+    assert plan.smem_bytes == smem(plan.rows, plan.cols)
+    assert plan.smem_bytes <= _kernels.MAX_SMEM_BYTES
+    tiles = -(-T // plan.rows)
+    if plan.cols == S._BWD_COLS[-1] and plan.spans == tiles:
+        return  # no more blocks to be had
+    assert plan.blocks >= sms
+    # the widest columns up to 128 that fill the card over at most two spans
+    assert plan.cols <= S._BWD2_WIDEST
+    for c in S._BWD_COLS:
+        if plan.cols < c <= S._BWD2_WIDEST:
+            assert 2 * B * -(-Dh // c) < sms or c >= 2 * Dh
+
+
+@pytest.mark.parametrize('B,T,N,Dh,cols,spans', [(64, 128, 15, 512, 128, 1),
+                                                 (64, 128, 25, 512, 128, 1),
+                                                 (8, 128, 40, 2048, 128, 2)])
+def test_scdm_bwd_bf16_plan_fills_the_card_at_the_main_shapes(B, T, N, Dh,
+                                                              cols, spans):
+    """The GMD train step (B=64 at N=15, 25) and N=40 at Dh=2048: about
+    two blocks an SM of an H100 (256 on 132 SMs), tiles of 32 rows, 128
+    columns over one or two spans."""
+    plan = S._scdm_bwd_plan(B, T, N, Dh, H100_SMS, _stand_in_bwd2_smem(N),
+                            elem_bytes=2)
+    assert (plan.cols, plan.spans, plan.rows) == (cols, spans, 32)
+    assert plan.blocks == 256 >= H100_SMS
+
+
+@pytest.mark.parametrize('Dh', [301, 300, 33, 1, 2048])
+def test_scdm_bwd_bf16_pairs_of_columns_cover_every_column(Dh):
+    """A bf16 block's thread owns columns k0 + 2 p and k0 + 2 p + 1: over
+    the planned chunks of columns every k < Dh has one owner, and only an
+    odd Dh leaves the last pair's second column past the end."""
+    plan = S._scdm_bwd_plan(3, 37, 17, Dh, H100_SMS, _stand_in_bwd2_smem(17),
+                            elem_bytes=2)
+    assert plan.cols % 2 == 0
+    owned, past = collections.Counter(), 0
+    for chunk in range(-(-Dh // plan.cols)):
+        for pair in range(plan.cols // 2):
+            k = chunk * plan.cols + 2 * pair
+            if k < Dh:
+                owned.update(c for c in (k, k + 1) if c < Dh)
+                past += k + 1 >= Dh
+    assert sorted(owned) == list(range(Dh))
+    assert set(owned.values()) == {1}
+    assert past == Dh % 2
+
+
+@pytest.mark.parametrize('cols,spans', [(32, 1), (256, 1), (256, 2),
+                                        (64, 4), (128, 100), (None, 3),
+                                        (128, None)])
+def test_scdm_bwd_bf16_plan_takes_the_overrides(cols, spans):
+    plan = S._scdm_bwd_plan(64, 128, 15, 512, H100_SMS,
+                            _stand_in_bwd2_smem(15), cols=cols, spans=spans,
+                            elem_bytes=2)
+    if cols is not None:
+        assert plan.cols == cols
+    if spans is not None:
+        tiles = 128 // plan.rows
+        assert plan.spans == -(-tiles // -(-tiles // min(spans, tiles)))
+    assert plan.spans * plan.t_len >= 128
+
+
+@pytest.mark.requires_cuda
+def test_scdm_bwd_bf16_smem_bytes_and_plan_on_cuda():
+    """The bf16 kernel's own layout (``svtsg_scdm_bwd_smem_bytes`` at 2
+    bytes): it grows with the rows, the columns and the words, takes a
+    multiple of 4 rows up to 32 and 32 to 256 columns, lets two blocks
+    share an SM at the main shapes, and the plan keeps it within the
+    card's shared memory."""
+    for N in (1, 15, 17, 33, 70, 600):
+        for cols in S._BWD_COLS:
+            sizes = [S._scdm_bwd_smem_bytes(r, cols, N, 2)
+                     for r in S._BWD_ROWS[::-1]]
+            assert all(0 < a <= b for a, b in zip(sizes, sizes[1:]))
+        assert S._scdm_bwd_smem_bytes(32, 128, N, 2) < \
+            S._scdm_bwd_smem_bytes(32, 256, N, 2)
+    assert S._scdm_bwd_smem_bytes(32, 128, 15, 2) < \
+        S._scdm_bwd_smem_bytes(32, 128, 600, 2)
+    for rows, cols, N in ((0, 32, 15), (2, 32, 15), (6, 64, 15),
+                          (36, 64, 15), (32, 48, 15), (32, 512, 15),
+                          (32, 16, 15), (32, 64, 0)):
+        assert S._scdm_bwd_smem_bytes(rows, cols, N, 2) == -1
+    assert S._scdm_bwd_smem_bytes(32, 128, 15, 3) == -1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, T, N, Dh in BWD_PLAN_SHAPES + [(64, 128, 600, 512)]:
+        plan = S._scdm_bwd_plan(
+            B, T, N, Dh, sms, lambda r, c: S._scdm_bwd_smem_bytes(r, c, N, 2),
+            elem_bytes=2)
+        assert 0 < plan.smem_bytes <= _kernels.MAX_SMEM_BYTES
+        if (B, T) == (64, 128) and N <= 25:
+            assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+
+
+# (B, T, N, Dh, elem_bytes, ms, by): in f32 10 operations a term at the
+# f32 peak; in bf16 six packed bf16 roundings a term at the bf16x2 peak
+# and five f32 operations at the f32 peak, their times added; bytes where
+# a term does little
+@pytest.mark.parametrize('B,T,N,Dh,elem,ms,by', [
+    (8, 128, 40, 2048, 4, 10 * 8 * 128 * 40 * 2048 / 67e9, 'operations'),
+    (64, 128, 15, 512, 2,
+     64 * 128 * 15 * 512 * (6 / 133.8e9 + 5 / 67e9), 'operations'),
+    (8, 128, 40, 2048, 2,
+     8 * 128 * 40 * 2048 * (6 / 133.8e9 + 5 / 67e9), 'operations'),
+    (64, 128, 1, 512, 2,
+     (2 * (2 * (64 * 128 * 512 + 64 * 512 + 512) + 64 * 128)
+      + 4 * 64 * 128) / 3.35e9, 'bytes')])
+def test_scdm_bwd_bound_counts_bf16_roundings_at_the_packed_rate(
+        B, T, N, Dh, elem, ms, by):
+    from shufflingvideosfortsg_torch.measure_scdm import scdm_bwd_bound
+    got_ms, got_by = scdm_bwd_bound(B, T, N, Dh, elem_bytes=elem)
+    assert got_by == by
+    assert got_ms == pytest.approx(ms, rel=1e-12)
+
+
+def test_kernel_build_reports_the_saved_compiler_output(tmp_path,
+                                                        monkeypatch):
+    """A library already built is not rebuilt, and ``build`` hands back the
+    compiler output saved beside it (ptxas's spill lines, which
+    chip_smoke.py's [build] reads), or nothing where none was saved."""
+    monkeypatch.setattr(_kernels, 'BUILD_DIR', str(tmp_path))
+    lib = tmp_path / f'libsvtsg_kernels_{_kernels._digest()}.so'
+    lib.write_bytes(b'')
+    assert _kernels.build() == (str(lib), 0.0, '')
+    (tmp_path / f'{lib.name}.log').write_text('ptxas info : 0 bytes spill')
+    assert _kernels.build() == (str(lib), 0.0, 'ptxas info : 0 bytes spill')
+
+
+@pytest.mark.requires_cuda
+def test_scdm_bwd_bf16_rejects_spans_of_odd_rows_on_cuda():
+    """At bf16 the C entry point takes spans of whole tiles only (t_len a
+    multiple of rows, so that every tile of dP starts on a 4-byte
+    boundary); other t_len return cudaErrorInvalidValue before a launch."""
+    B, T, N, Dh = 2, 37, 15, 64
+    bf16 = dict(device='cuda', dtype=torch.bfloat16)
+    f32 = dict(device='cuda', dtype=torch.float32)
+    ins = (torch.zeros(B, T, Dh, **bf16), torch.zeros(B, N, Dh, **bf16),
+           torch.zeros(Dh, **bf16), torch.zeros(B, T, N, **f32),
+           torch.zeros(B, T, N, **bf16))
+    lib = _kernels.library()
+    for spans, t_len, want in ((2, 19, 1), (2, 21, 1), (1, 37, 1),
+                               (2, 20, 0), (1, 40, 0)):
+        outs = (torch.zeros(B, T, Dh, **f32),
+                torch.zeros(spans, B, N, Dh, **f32),
+                torch.zeros(spans * B, Dh, **f32))
+        err = lib.svtsg_scdm_bwd(
+            *(a.data_ptr() for a in ins), *(o.data_ptr() for o in outs), B,
+            T, N, Dh, 32, 4, spans, t_len, 1, 0,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == want, (spans, t_len)
 
 
 @pytest.mark.requires_cuda
@@ -702,7 +895,10 @@ K5_BF16_CUDA_SHARE = 2.0 ** -6
                                          (8, 128, 40, 2048, 2048),
                                          (5, 37, 17, 300, 256),
                                          (3, 37, 17, 301, 255),
-                                         (2, 21, 70, 128, 96)])
+                                         (2, 21, 70, 128, 96),
+                                         (3, 21, 1, 128, 96),
+                                         (2, 21, 33, 128, 96),
+                                         (1, 37, 17, 301, 255)])
 def test_k5_bf16_matches_plain_on_cuda(B, T, N, Dh, Ds):
     from shufflingvideosfortsg_torch.ops.scdm_fused import (
         scdm_attention_bwd_plain, scdm_attention_fused_trainable)
@@ -726,3 +922,88 @@ def test_k5_bf16_matches_plain_on_cuda(B, T, N, Dh, Ds):
         w = w.float()
         assert (g.float() - w).abs().max().item() \
             <= K5_BF16_CUDA_SHARE * w.abs().max().item()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('B,T,N,Dh,Ds', [(64, 128, 15, 512, 512),
+                                         (5, 37, 17, 300, 256)])
+def test_k5_bf16_takes_a_misaligned_video_proj_on_cuda(B, T, N, Dh, Ds):
+    """video_proj a view one element into its storage: 2-byte aligned, so
+    the backward stages it by plain loads."""
+    bf16 = torch.bfloat16
+    args = [torch.from_numpy(a).cuda().to(bf16)
+            for a in _scdm_inputs(B + N, B, T, N, Dh, Ds)]
+    vp = torch.cat([args[0].new_zeros(1), args[0].flatten()])[1:]
+    args[0] = vp.view(B, T, Dh)
+    assert args[0].is_contiguous() and args[0].data_ptr() % 4 == 2
+    got = S.scdm_attention_bwd_core(*args[:3], *_k5_p_dp(args, B, T, Ds))
+    want = S.scdm_attention_bwd_core(*[a.clone() for a in args[:3]],
+                                     *_k5_p_dp(args, B, T, Ds))
+    ref = S.scdm_attention_bwd_core_plain(*args[:3], *_k5_p_dp(args, B, T, Ds))
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, want, ref):
+        assert torch.equal(g, a)  # the aligned copy's kernel, bit for bit
+        w = w.float()
+        assert (g.float() - w).abs().max().item() \
+            <= K5_BF16_CUDA_SHARE * w.abs().max().item()
+
+
+def _k5_p_dp(args, B, T, Ds):
+    """The forward's f32 softmax P and dP = G sent_feat^T (a seeded G)
+    for K5's backward core at bf16."""
+    g_out = torch.from_numpy(np.random.RandomState(B).randn(B, T, Ds)
+                             .astype(np.float32)).cuda().to(torch.bfloat16)
+    with torch.no_grad():
+        _, P = S._launch_forward(args, want_p=True)
+        return P, torch.bmm(g_out, args[3].transpose(1, 2))
+
+
+@pytest.mark.requires_cuda
+def test_k5_backward_launches_the_kernel_of_its_dtype_on_cuda():
+    """A profiler trace of the backward core: bf16 inputs launch
+    scdm_bwd_bf16x2_kernel, f32 ones scdm_bwd_kernel, once each."""
+    from torch.profiler import ProfilerActivity, profile
+    for dt, want in ((torch.bfloat16, 'scdm_bwd_bf16x2_kernel'),
+                     (torch.float32, 'scdm_bwd_kernel')):
+        zeros = lambda *shape, dtype=dt: torch.zeros(*shape, device='cuda',
+                                                     dtype=dtype)
+        args = (zeros(4, 37, 300), zeros(4, 17, 300), zeros(300),
+                zeros(4, 37, 17, dtype=torch.float32), zeros(4, 37, 17))
+        S.scdm_attention_bwd_core(*args)  # built and planned before tracing
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            S.scdm_attention_bwd_core(*args)
+            torch.cuda.synchronize()
+        names = collections.Counter()
+        for evt in prof.key_averages():
+            hit = re.search(r'(\w*scdm_bwd\w*)', evt.key)
+            if hit and evt.device_type == torch.autograd.DeviceType.CUDA:
+                names[hit.group(1)] += evt.count
+        assert names == {want: 1}, names
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('cols', [32, 64, 128, 256])
+def test_k5_bf16_backward_kernel_takes_every_launch_on_cuda(cols):
+    """Every column width and span count of the bf16 kernel at a ragged
+    shape (T=37 over tiles of the plan's rows, N=17 in two passes, Dh=300)
+    against the plain core; d_video_proj, which one thread sums over the
+    words in order whatever the launch, in the planned launch's bits."""
+    B, T, N, Dh, Ds = 5, 37, 17, 300, 256
+    args = [torch.from_numpy(a).cuda().to(torch.bfloat16)
+            for a in _scdm_inputs(B + N, B, T, N, Dh, Ds)]
+    core = (*args[:3], *_k5_p_dp(args, B, T, Ds))
+    want = S.scdm_attention_bwd_core_plain(*core)
+    planned = S.scdm_attention_bwd_core(*core)
+    for spans in (1, 2, 4):
+        plan = S._scdm_bwd_launch(B, T, N, Dh, 0, cols=cols, spans=spans,
+                                  elem_bytes=2)
+        got = S._launch_backward(core, plan)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            w = w.float()
+            assert (g.float() - w).abs().max().item() \
+                <= K5_BF16_CUDA_SHARE * w.abs().max().item(), (cols, spans)
+        assert torch.equal(got[0], planned[0])
+
