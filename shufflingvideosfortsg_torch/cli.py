@@ -35,11 +35,22 @@ submit beside the top-1 span, and the retrieval table gains its R@k rows.
 ``precision: bf16`` runs the train and test drivers (and the grounder) in
 bf16 with f32 weights and f32 optimizer state, as the JAX package does,
 cuBLAS's bf16 products summed in f32 (``utils/device.exact_bf16_products``).
-Not ported yet, and refused in training: ``multi_seed``,
-``pipeline_stages``, ``tensor_parallel``, ``fsdp``,
-``grad_accum_steps > 1``, ``async_checkpoint`` and ``--start_from auto``. A non-finite training
-loss raises at the watchdog's cadence; the JAX watchdog's emergency
-checkpoint is not ported.
+
+Training checkpoints hold the full trainer state (``utils/saver.py``: the
+reference ``.ckp`` and its sidecar), written in the background with
+``async_checkpoint``. ``--start_from <ckp>`` restores the weights and,
+where the sidecar exists, the optimizer's state, the update count and the
+generators; ``--start_from auto`` resumes from the alias's newest
+checkpoint at the next epoch (``_resolve_auto_resume``, JAX
+``cli.py:644``). As in JAX the loader's shuffle restarts at its first
+epoch order on resume (JAX ``data/pipeline.py:291``). A non-finite
+training loss writes ``<alias>_99999.ckp`` and its sidecar, then raises
+(``_check_finite``, JAX ``cli.py:277``). ``grad_accum_steps`` > 1 takes
+each update's gradient over that many microbatches
+(``train/steps._backward``). ``SVTSG_TRACE_DIR=<dir>`` traces a training
+run with ``torch.profiler`` and writes a Chrome trace there. Not ported
+yet, and refused in training: ``multi_seed``, ``pipeline_stages``,
+``tensor_parallel`` and ``fsdp``.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ import argparse
 import json
 import logging
 import math
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -66,7 +78,7 @@ from .train.steps import (HOST_PAIR_KEYS, STEP_KEYS, TRAIN_KEYS,
                           make_gmd_valid_step, to_device)
 from .utils.device import exact_bf16_products, resolve_device
 from .utils.interop import load_reference_ckp
-from .utils.saver import RunManager
+from .utils.saver import RunManager, latest_checkpoint, load_checkpoint
 
 
 def build_argparser(default_model: str = 'QAVE_match',
@@ -218,15 +230,71 @@ def _refuse_unported_training(params: Dict[str, Any]) -> None:
         'pipeline_stages': int(params.get('pipeline_stages', 0) or 0) > 0,
         'tensor_parallel': int(params.get('tensor_parallel', 0) or 0) > 1,
         'fsdp': bool(params.get('fsdp')),
-        'grad_accum_steps': int(params.get('grad_accum_steps', 1) or 1) > 1,
-        'async_checkpoint': bool(params.get('async_checkpoint')),
-        'start_from auto':
-            str(params.get('start_from') or '').lower() == 'auto',
     }
     named = [k for k, on in refused.items() if on]
     if named:
         raise NotImplementedError(f'{", ".join(named)}: not ported to the '
                                   'PyTorch trainer yet')
+
+
+def _resolve_auto_resume(params: Dict[str, Any]):
+    """``--start_from auto`` (JAX ``cli.py:644-657``): the alias's newest
+    checkpoint becomes ``start_from``. Returns (reuse the run directory,
+    first epoch): (True, its epoch + 1), or with no checkpoint yet a fresh
+    start at epoch 0 that reuses the directory if it exists. Any other
+    ``start_from`` gives (False, 0)."""
+    if str(params.get('start_from') or '').lower() != 'auto':
+        return False, 0
+    model_dir = os.path.join(params['runs'], params['alias'], 'model')
+    found = latest_checkpoint(model_dir)
+    if found is None:
+        params['start_from'] = None
+        return os.path.isdir(os.path.dirname(model_dir)), 0
+    params['start_from'] = found[0]
+    return True, found[1] + 1
+
+
+def _check_finite(loss: float, saver: RunManager, model, state, generators,
+                  logger, epoch: int, idx: int) -> None:
+    """The watchdog (JAX ``cli.py:277-290``): on a non-finite loss write
+    the emergency checkpoint ``<alias>_99999.ckp`` and its sidecar
+    synchronously, log its path and raise ``FloatingPointError``."""
+    if math.isfinite(loss):
+        return
+    path = saver.save_checkpoint(saver.model_path(99999), model, state,
+                                 generators, sync=True)
+    logger.error('non-finite loss %s at epoch %d batch %d; emergency '
+                 'checkpoint saved to %s', loss, epoch, idx, path)
+    raise FloatingPointError(f'non-finite loss {loss} at epoch {epoch} '
+                             f'batch {idx}')
+
+
+def _start_trace(device: torch.device):
+    """With ``SVTSG_TRACE_DIR`` set, a started ``torch.profiler`` trace
+    (CPU and, on a card, CUDA activities) of the training run (JAX
+    ``cli.py:628-641``); otherwise None."""
+    if not os.environ.get('SVTSG_TRACE_DIR'):
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == 'cuda':
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_trace(prof, alias: str, device: torch.device) -> None:
+    """Stop :func:`_start_trace`'s trace and write it as the Chrome trace
+    ``$SVTSG_TRACE_DIR/<alias>.pt.trace.json``."""
+    if prof is None:
+        return
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+    prof.stop()
+    out = os.environ['SVTSG_TRACE_DIR']
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, f'{alias}.pt.trace.json'))
 
 
 def _avg(fetched: Dict[str, np.ndarray], key, weights=None) -> float:
@@ -547,7 +615,8 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
     if device.type == 'cuda':
         exact_bf16_products()
     logger = setup_logger(params['alias'])
-    saver = RunManager(params)
+    allow_existing, start_epoch = _resolve_auto_resume(params)
+    saver = RunManager(params, allow_existing=allow_existing)
     lg = str(params['vfeat_fn']).lower() == 'lg'
     seed = params.get('seed', 123)
 
@@ -564,15 +633,26 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
     valid_loader = BatchLoader(valid_set, params['batch_size'][2],
                                shuffle=False,
                                device_assemble=valid_bank is not None)
-    if params.get('start_from'):
-        model.load_state_dict(load_reference_ckp(params['start_from']))
-        logger.warning('resume from checkpoint: %s (weights only)',
-                       params['start_from'])
     state = TrainState(model, params, steps_per_epoch=len(train_loader))
     train_step, validate = steps(model, state, lg, device, train_bank,
                                  valid_bank)
     train_gen = train_step.generator = torch.Generator(device).manual_seed(
         seed)
+    generators = {'train': train_gen}
+    if hasattr(train_step, 'valid_generator'):
+        generators['valid'] = train_step.valid_generator
+    if params.get('start_from'):
+        # restored in place before the first step, so before any graph is
+        # captured
+        weights, resume, weights_only = load_checkpoint(params['start_from'])
+        model.load_state_dict(weights)
+        if resume is not None:
+            state.load_state_dict(resume['train_state'])
+            for name, gen_state in resume['generators'].items():
+                generators[name].set_state(gen_state)
+        logger.warning('resume from checkpoint: %s (reference-format=%s, '
+                       'step=%s)', params['start_from'], weights_only,
+                       state.step)
     chunk = int(params.get('train_scan_chunk', 16))
     run_chunk = None
     if hasattr(train_step, 'inner') and train_bank is not None and chunk > 1:
@@ -591,11 +671,11 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
                         'time=%0.2fs, %s', epoch, idx, n_batches,
                         time.time() - t_b, ', '.join(
                             f'{k}: {m[k]:03.3f}' for k in ('loss',) + terms))
-        if not math.isfinite(m['loss']):
-            raise FloatingPointError(f'non-finite loss {m["loss"]} at epoch '
-                                     f'{epoch} batch {idx}')
+        _check_finite(m['loss'], saver, model, state, generators, logger,
+                      epoch, idx)
 
-    for epoch in range(params['epoch']):
+    trace = _start_trace(device)
+    for epoch in range(start_epoch, params['epoch']):
         t0 = time.time()
         outs, weights = [], None
         if run_chunk is None:
@@ -641,8 +721,10 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
             statistics['mIoU'][epoch] = round(miou * 100, 2)
         if ((epoch + 1) % params['save_model_interval'] == 0
                 or epoch + 1 == params['epoch']):
-            logger.info('Save model in %s',
-                        saver.save_checkpoint(epoch, model))
+            logger.info('Save model in %s', saver.save_checkpoint(
+                epoch, model, state, generators))
+    saver.wait()  # the async writer's last checkpoint is on disk
+    _stop_trace(trace, params['alias'], device)
     _print_statistics(statistics)
     return statistics
 

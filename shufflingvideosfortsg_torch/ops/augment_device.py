@@ -1,13 +1,17 @@
 """Pseudo-video generation on the device (the shuffling framework's hot path).
 
-Counterpart of ``shufflingvideosfortsg_tpu/ops/augment_device.py:22-101``:
+Counterpart of ``shufflingvideosfortsg_tpu/ops/augment_device.py:22-118``:
 the reference's per-sample ``gt_moment_translate`` (np.delete/np.insert in
 the data loader, data_augment.py:135-156) as one [B, T] gather of the
-padded [B, T, D] features, plus the four masks of the translated span.
+padded [B, T, D] features, plus the four masks of the translated span;
+and the segment-permutation shuffle (data_augment.py:158-166), which no
+driver calls, as in JAX.
 
-The draw is explicit: the caller passes ``u`` [B], uniform on [0, 1), from
-its own generator, so a test can feed the numbers ``jax.random.uniform``
-drew and get the same insertion offsets as the JAX function.
+The draws are explicit: the caller passes ``u`` [B], uniform on [0, 1),
+from its own generator, so a test can feed the numbers
+``jax.random.uniform`` drew and get the same insertion offsets as the JAX
+function; :func:`segment_shuffle` takes the permutations themselves, and
+:func:`segment_shuffle_batch` draws them from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -94,3 +98,29 @@ def gt_translate_batch(u: Tensor, video_feat: Tensor, framestps: Tensor,
                           idx[:, :, None].expand(-1, -1, video_feat.shape[2]))
     masks = device_masks(new_s, new_e, n, T)
     return pseudo, torch.stack([new_s, new_e], dim=-1).to(torch.int32), masks
+
+
+def segment_shuffle(video_feat: Tensor, perms: Tensor, seg_len: int
+                    ) -> Tensor:
+    """The segment shuffle at given permutations: [B, T, D] cut into
+    T // seg_len segments of ``seg_len`` clips, sample b's segment i
+    taken from segment ``perms[b, i]`` ([B, T // seg_len] int); a tail of
+    T % seg_len clips stays in place."""
+    B, T, D = video_feat.shape
+    n_seg = T // seg_len
+    body = video_feat[:, :n_seg * seg_len].reshape(B, n_seg, seg_len, D)
+    index = perms.long()[:, :, None, None].expand(-1, -1, seg_len, D)
+    out = torch.gather(body, 1, index).reshape(B, n_seg * seg_len, D)
+    return torch.cat([out, video_feat[:, n_seg * seg_len:]], dim=1)
+
+
+def segment_shuffle_batch(generator: torch.Generator, video_feat: Tensor,
+                          seg_len: int) -> Tensor:
+    """On-device segment-permutation shuffle (JAX ``:104-118``): an
+    independent uniform permutation of the T // seg_len segments a
+    sample, drawn from ``generator`` (one [B, T // seg_len] uniform draw,
+    ranked), applied by :func:`segment_shuffle`."""
+    B, T, _ = video_feat.shape
+    u = torch.rand(B, T // seg_len, generator=generator,
+                   device=video_feat.device)
+    return segment_shuffle(video_feat, u.argsort(dim=1), seg_len)

@@ -155,7 +155,9 @@ class TrainState:
     """The model, its optimizer, the schedule and the update count
     (``TrainState`` of the JAX package; here the parameters live in the
     model and change in place). On a card a CUDA graph can capture
-    :meth:`update`."""
+    :meth:`update`. :meth:`state_dict` and :meth:`load_state_dict` carry
+    the count and the optimizer's state through a checkpoint's sidecar
+    (``utils/saver.py``)."""
 
     def __init__(self, model: nn.Module, params: Dict[str, Any],
                  steps_per_epoch: int):
@@ -190,3 +192,36 @@ class TrainState:
         self.set_lr()
         self.update()
         self.step += 1
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The update count and the optimizer's ``state_dict`` (its
+        tensors the live ones: copy them before the next update)."""
+        return {'step': self.step, 'optimizer': self.optimizer.state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Restore :meth:`state_dict` in place: each optimizer state
+        tensor that exists is overwritten with ``copy_``, one that does
+        not yet (no update taken) is made on its parameter's device, and
+        no parameter, state or rate tensor is replaced, so a CUDA graph
+        captured over them stays valid. The rate follows the restored
+        step (:meth:`set_lr`); the other hyperparameters stay the
+        configuration's."""
+        saved = sd['optimizer']
+        groups = self.optimizer.param_groups
+        sizes = [len(g['params']) for g in groups]
+        want = [len(g['params']) for g in saved['param_groups']]
+        if sizes != want:
+            raise ValueError(f'optimizer state for groups of {want} '
+                             f'parameters, this one has {sizes}')
+        params = [p for g in groups for p in g['params']]
+        ids = [i for g in saved['param_groups'] for i in g['params']]
+        for p, i in zip(params, ids):
+            live = self.optimizer.state[p]
+            for key, value in saved['state'].get(i, {}).items():
+                if key in live:
+                    live[key].copy_(value)
+                else:
+                    live[key] = value.to(device=p.device, copy=True)
+        self.step = int(sd['step'])
+        self.set_lr()

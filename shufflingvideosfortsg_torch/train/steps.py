@@ -14,7 +14,10 @@ GMD valid steps carry ``step.grouped``: G loader batches ``[G, B, ...]``
 as one ``[G*B]`` model pass, with each batch's loss and mIoU its own
 (``_flatten_group``/``_regroup``, JAX ``:277-298``). The GMD train step
 carries ``step.inner``, its device work alone, which a CUDA graph can
-capture (``cli._banked_train_chunks_factory``). The train
+capture (``cli._banked_train_chunks_factory``). With
+``grad_accum_steps`` > 1 both train steps (and ``step.inner``) take an
+update's gradient as the mean over that many microbatches, run one
+after another (``_backward``, JAX ``_accumulate_grads``). The train
 loss is the reference's (grounding/
 train.py:140-165): grounding NLL + m1 * (intra-video BCE on raw and pseudo)
 + m2 * (inter-video span KL) + disc * (order-discrimination CE), plus
@@ -162,9 +165,55 @@ def _match_losses(out, batch: Batch, pseudo: Batch, m1: float, m2: float):
     return loss_g, loss_intra, loss_inter
 
 
-def _refuse_grad_accum(params: Dict[str, Any]) -> None:
-    if int(params.get('grad_accum_steps', 1) or 1) > 1:
-        raise NotImplementedError('grad_accum_steps > 1 is not ported yet')
+# the batch keys the GMD loss reads: the only ones split into microbatches
+# (nfeats, duration, timestps feed the full batch's statistics)
+_GMD_LOSS_KEYS = ('sent_feat', 'sent_mask', 'video_feat', 'video_mask',
+                  'temporal_labels', 'fore_masks', 'back_masks', 'framestps')
+_BASELINE_LOSS_KEYS = ('video_feat', 'sent_feat', 'video_mask', 'sent_mask',
+                       'framestps')
+
+
+def _backward(loss_fn, params, batch: Batch, pseudo: Batch, generator,
+              accum: int, keys: Sequence[str]) -> Batch:
+    """The gradient of ``loss_fn(batch, pseudo, generator) -> (loss, aux)``
+    into the parameters' ``.grad`` (zeroed first), and its ``aux``.
+
+    With ``accum`` > 1 (JAX ``_accumulate_grads``, ``train/steps.py:57``)
+    ``keys`` of the batch and the whole pseudo stream are split into
+    ``accum`` microbatches of consecutive rows, run one after another
+    (activation memory is one microbatch's), each drawing its own dropout
+    masks from ``generator``; their gradients are summed and divided by
+    ``accum``. Scalars of ``aux`` are the microbatches' mean, per-sample
+    outputs are concatenated back to the full batch."""
+    params = list(params)
+    for p in params:
+        p.grad = None
+    if accum == 1:
+        loss, aux = loss_fn(batch, pseudo, generator)
+        loss.backward()
+        return aux
+    b = next(iter(pseudo.values())).shape[0] if pseudo else \
+        batch[keys[0]].shape[0]
+    if b % accum:
+        raise ValueError(f'grad_accum_steps={accum} must divide the batch '
+                         f'size ({b})')
+    rows = b // accum
+    auxs = []
+    for i in range(accum):
+        def part(x):
+            return x[i * rows:(i + 1) * rows]
+        loss, aux = loss_fn({k: part(batch[k]) for k in keys if k in batch},
+                            {k: part(v) for k, v in pseudo.items()},
+                            generator)
+        loss.backward()
+        auxs.append({k: v.detach() for k, v in aux.items()})
+    with torch.no_grad():
+        for p in params:
+            if p.grad is not None:
+                p.grad.div_(accum)
+    return {k: (torch.stack([a[k] for a in auxs]).mean() if v.dim() == 0
+                else torch.cat([a[k] for a in auxs]))
+            for k, v in auxs[0].items()}
 
 
 def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
@@ -183,8 +232,8 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
     md = float(params['loss_disc_lambda'])
     mpg = float(params.get('loss_pseudo_ground_lambda', 0) or 0)
     on_device_aug = bool(params.get('on_device_aug', True))
+    accum = int(params.get('grad_accum_steps', 1) or 1)
     assemble = assembler or _identity
-    _refuse_grad_accum(params)
 
     def loss_fn(batch: Batch, pseudo: Batch, generator):
         out = _pair_forward(model, batch, pseudo, generator)
@@ -211,9 +260,8 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
             pseudo = _device_pseudo(batch, generator)
         else:
             pseudo = {k: batch['pseudo_' + k] for k in PSEUDO_KEYS}
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(batch, pseudo, generator)
-        loss.backward()
+        aux = _backward(loss_fn, model.parameters(), batch, pseudo,
+                        generator, accum, _GMD_LOSS_KEYS)
         state.update()
         metrics = {k: v.detach() for k, v in aux.items()}
         *_, metrics['miou'] = _stats(metrics.pop('start_prob'),
@@ -340,7 +388,7 @@ def make_baseline_train_step(model, state: TrainState,
     of ``state`` on the grounding NLL of one batch, with dropout masks from
     the generator. ``step.loss_fn(batch, generator) -> (loss, aux)`` is the
     loss alone."""
-    _refuse_grad_accum(params)
+    accum = int(params.get('grad_accum_steps', 1) or 1)
     assemble = assembler or _identity
 
     def loss_fn(batch: Batch, generator):
@@ -355,13 +403,13 @@ def make_baseline_train_step(model, state: TrainState,
     def train_step(batch: Batch, generator: torch.Generator) -> Batch:
         model.train()
         batch = assemble(batch)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(batch, generator)
-        loss.backward()
+        aux = _backward(lambda b, _pseudo, g: loss_fn(b, g),
+                        model.parameters(), batch, {}, generator, accum,
+                        _BASELINE_LOSS_KEYS)
         state.apply_gradients()
         *_, miou = _stats(aux['start_prob'].detach(),
                           aux['end_prob'].detach(), batch, lg_frame2sec)
-        return {'loss': loss.detach(), 'miou': miou}
+        return {'loss': aux['loss'].detach(), 'miou': miou}
 
     train_step.loss_fn = loss_fn
     return train_step

@@ -239,12 +239,16 @@ def test_baseline_train_step_with_dropout_is_seeded():
 
 
 def test_baseline_steps_refuse_what_is_not_ported():
-    params = _params(grad_accum_steps=2)
+    # grad_accum_steps is ported (tests/test_torch_grad_accum.py): the
+    # step refuses only an accum that does not divide the batch of 4
+    params = _params(grad_accum_steps=3)
     model = build_model(params, 'baseline', device='cpu')
-    with pytest.raises(NotImplementedError, match='grad_accum_steps'):
-        make_baseline_train_step(model, TrainState(model, params, 1), params)
-    # eval_topk > 1 is ported: the step adds each row's NMS proposals
+    step = make_baseline_train_step(model, TrainState(model, params, 1),
+                                    params)
     b = _batch()
+    with pytest.raises(ValueError, match='grad_accum_steps=3 must divide'):
+        step({k: _t(b[k]) for k in STEP_KEYS}, None)
+    # eval_topk > 1 is ported: the step adds each row's NMS proposals
     out = make_baseline_eval_step(model, topk=3)(
         {k: _t(b[k]) for k in STEP_KEYS})
     B = out['pred_time'].shape[0]

@@ -94,6 +94,35 @@ def test_device_masks_match_jax_at_the_edges():
                                       err_msg=k)
 
 
+@pytest.mark.parametrize('T_len, seg_len', [(16, 4), (19, 4), (20, 7)])
+def test_segment_shuffle_matches_jax_at_the_jax_permutations(T_len, seg_len):
+    """``segment_shuffle`` at the permutations JAX's
+    ``segment_shuffle_batch`` draws equals its output, a ragged tail kept
+    in place; ``segment_shuffle_batch`` permutes each row's segments
+    from its generator, the same seed giving the same rows."""
+    rng = np.random.RandomState(T_len)
+    Bs, n_seg = 6, T_len // seg_len
+    video = rng.randn(Bs, T_len, 3).astype(np.float32)
+    key = jax.random.PRNGKey(seg_len)
+    want = jax_aug.segment_shuffle_batch(key, jnp.asarray(video), seg_len)
+    perms = jax.vmap(lambda k: jax.random.permutation(k, n_seg))(
+        jax.random.split(key, Bs))
+    got = augment_device.segment_shuffle(_t(video), _t(perms), seg_len)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    drawn = [augment_device.segment_shuffle_batch(
+        torch.Generator().manual_seed(1), _t(video), seg_len)
+        for _ in range(2)]
+    assert torch.equal(drawn[0], drawn[1])
+    body = drawn[0][:, :n_seg * seg_len].reshape(Bs, n_seg, seg_len, 3)
+    for b in range(Bs):
+        segs = _t(video[b, :n_seg * seg_len]).reshape(n_seg, seg_len, 3)
+        order = [int((segs == body[b, i]).all(-1).all(-1).nonzero())
+                 for i in range(n_seg)]
+        assert sorted(order) == list(range(n_seg))
+    np.testing.assert_array_equal(drawn[0][:, n_seg * seg_len:].numpy(),
+                                  video[:, n_seg * seg_len:])
+
+
 # --- losses -----------------------------------------------------------------
 
 def _loss_inputs(seed):
@@ -317,14 +346,6 @@ def test_train_step_on_device_pseudo_runs_and_is_seeded():
                 torch.Generator().manual_seed(0))
     assert out['pred_time'].shape == (B, 2) and torch.isfinite(out['loss'])
     assert not model.training
-
-
-def test_grad_accumulation_is_refused():
-    params = _params(grad_accum_steps=2)
-    _, weights = _jax_setup(params)
-    model = _port_model(params, weights)
-    with pytest.raises(NotImplementedError, match='grad_accum_steps'):
-        make_gmd_train_step(model, TrainState(model, params, 1), params)
 
 
 # --- optimizer pieces --------------------------------------------------------
