@@ -162,11 +162,10 @@ DEFAULTS: Dict[str, Any] = {
                                   # checkpoints/test drivers are
                                   # untouched; excludes --fsdp /
                                   # --pipeline_stages / --multi_seed
-    "remat": False,               # jax.checkpoint each QAVE block: the
-                                  # backward recomputes activations
-                                  # instead of saving them — for large-B
-                                  # training past the HBM spill point
-                                  # (docs/KERNELS.md B-sweep)
+    "remat": False,               # torch.utils.checkpoint each QAVE
+                                  # block: the backward recomputes its
+                                  # activations instead of keeping them
+                                  # (less memory a step, the same bits)
     "grad_accum_steps": 1,        # microbatches per optimizer update
                                   # (lax.scan inside the jitted step:
                                   # activation memory is one micro-

@@ -1,6 +1,6 @@
-"""The QAVE baseline: sentence encoder, QAVE, the cross-modal concat and
-the span predictor, trained on the grounding loss alone (no CSMM gate, no
-discriminator).
+"""The QAVE baseline: sentence encoder, video encoder (QAVE, or the RNN
+encoder), the cross-modal features and the span predictor, trained on
+the grounding loss alone (no CSMM gate, no discriminator).
 
 Counterpart of ``shufflingvideosfortsg_tpu/models/baseline.py:16-64``
 (reference: grounding/model/Baseline.py). Submodules carry the reference
@@ -18,8 +18,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from .components import (QueryAwareEncoder, SentenceRNNEncoder,
-                         SpanPredictorBoundary, cmi_apply, cmi_dim)
+from .components import (SentenceRNNEncoder, SpanPredictorBoundary,
+                         cmi_apply, cmi_dim, video_encoder)
 
 
 class Baseline(nn.Module):
@@ -29,25 +29,22 @@ class Baseline(nn.Module):
                  video_hidden: int = 256, video_layers: int = 2,
                  nblocks: int = 2, cross_name: str = 'vs',
                  predictor_name: str = 'mlp', mlp_hidden_dim: int = 256,
-                 video_if_mask: bool = False, dropout: float = 0.5,
+                 span_hidden_dim: int = 128, video_if_mask: bool = False,
+                 dropout: float = 0.5, remat: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if video_encoder_name.lower() not in ('query_aware_encoder', 'qae',
-                                              'qave'):
-            raise NotImplementedError(f'video encoder {video_encoder_name!r} '
-                                      'is not ported yet (only QAVE)')
         self.cross_name = cross_name
         self.video_if_mask = video_if_mask
         sent_dim = 2 * sent_hidden
         self.dtype = dtype
         self.sentence_encoder = SentenceRNNEncoder(word_dim, sent_hidden,
                                                    sent_layers, dropout, dtype)
-        self.video_encoder = QueryAwareEncoder(
-            video_feature_dim, video_hidden, video_layers, nblocks, sent_dim,
-            dropout, dtype=dtype)
+        self.video_encoder = video_encoder(
+            video_encoder_name, video_feature_dim, video_hidden, video_layers,
+            nblocks, sent_dim, dropout, dtype, remat)
         self.span_predictor = SpanPredictorBoundary(
             predictor_name, cmi_dim(cross_name, 2 * video_hidden, sent_dim),
-            mlp_hidden_dim, dtype)
+            mlp_hidden_dim, span_hidden_dim, dropout, dtype=dtype)
 
     def forward(self, video_feat: torch.Tensor, query_feat: torch.Tensor,
                 video_mask: Optional[torch.Tensor] = None,

@@ -43,7 +43,9 @@ def model_config_from_params(params: Dict[str, Any]) -> Dict[str, Any]:
         cross_name=params['crossmodal'],
         predictor_name=params['predictor'],
         mlp_hidden_dim=params['mlp_hidden_dim'],
+        span_hidden_dim=params['span_hidden_dim'],
         video_if_mask=bool(params['mask']),
+        remat=bool(params.get('remat', False)),
         dropout=params['dropout'],
         dtype=compute_dtype(params),
     )
@@ -56,6 +58,8 @@ def build_model(params: Dict[str, Any], kind: str = 'gmd',
     caller) initialisation, then move it to ``device``."""
     if kind.lower() in GMD_KINDS:
         model = GMD(m_temp=params['m_temp'],
+                    # fixed in the reference driver (train.py:85)
+                    m_temp_hidden=256, m_temp_layers=2,
                     m_pred_hidden=params['m_pred_hidden'],
                     m_pred_activ=params['m_pred_activ'],
                     disc_dropout=float(params.get('disc_dropout', 0.5)),

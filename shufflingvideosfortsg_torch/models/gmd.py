@@ -2,7 +2,8 @@
 
 Counterpart of ``shufflingvideosfortsg_tpu/models/gmd.py`` (``:25-83``
 construction, ``:85-177`` the pair forward, ``:179-195`` ``eval_forward``,
-``:197-294`` serving over a cached block-0 recurrence).
+``:197-294`` serving over a cached block-0 recurrence, or with the RNN
+video encoder over the video itself).
 The raw and pseudo videos run through the shared video encoder and CSMM
 as one [2B] batch. Dropout follows ``self.training``, with masks from the
 generator a forward is given. Submodules carry the
@@ -22,8 +23,8 @@ from torch import nn
 
 from .components import (MomentPoolingTOD, QueryAwareEncoder,
                          SentenceRNNEncoder, SpanPredictorBoundary,
-                         VideoTextSemanticMatch, cmi_apply, cmi_dim)
-
+                         VideoTextSemanticMatch, cmi_apply, cmi_dim,
+                         video_encoder)
 
 class GMD(nn.Module):
     def __init__(self, video_feature_dim: int = 1024, word_dim: int = 300,
@@ -32,16 +33,13 @@ class GMD(nn.Module):
                  video_hidden: int = 256, video_layers: int = 2,
                  nblocks: int = 2, cross_name: str = 'vs',
                  predictor_name: str = 'mlp', mlp_hidden_dim: int = 256,
-                 video_if_mask: bool = False,
-                 m_temp: str = 'none', m_pred_hidden: int = 1024,
+                 span_hidden_dim: int = 128, video_if_mask: bool = False,
+                 m_temp: str = 'none', m_temp_hidden: int = 256,
+                 m_temp_layers: int = 2, m_pred_hidden: int = 1024,
                  m_pred_activ: str = 'relu', dropout: float = 0.5,
                  disc_dropout: float = 0.5, pseudo_ground: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if video_encoder_name.lower() not in ('query_aware_encoder', 'qae',
-                                              'qave'):
-            raise NotImplementedError(f'video encoder {video_encoder_name!r} '
-                                      'is not ported yet (only QAVE)')
         self.cross_name = cross_name
         self.video_if_mask = video_if_mask
         # beyond the reference: also ground the pseudo stream through the
@@ -52,14 +50,15 @@ class GMD(nn.Module):
         self.dtype = dtype
         self.sentence_encoder = SentenceRNNEncoder(word_dim, sent_hidden,
                                                    sent_layers, dropout, dtype)
-        self.video_encoder = QueryAwareEncoder(
-            video_feature_dim, video_hidden, video_layers, nblocks, sent_dim,
-            dropout, dtype=dtype)
+        self.video_encoder = video_encoder(
+            video_encoder_name, video_feature_dim, video_hidden, video_layers,
+            nblocks, sent_dim, dropout, dtype, remat)
         self.span_predictor = SpanPredictorBoundary(
             predictor_name, cmi_dim(cross_name, visual_dim, sent_dim),
-            mlp_hidden_dim, dtype)
-        self.csmm = VideoTextSemanticMatch(visual_dim, sent_dim, m_temp,
-                                           m_pred_hidden, m_pred_activ, dtype)
+            mlp_hidden_dim, span_hidden_dim, dropout, dtype=dtype)
+        self.csmm = VideoTextSemanticMatch(
+            visual_dim, sent_dim, m_temp, m_pred_hidden, m_pred_activ, dtype,
+            m_temp_hidden, m_temp_layers, dropout)
         self.tod = MomentPoolingTOD(visual_dim, disc_dropout, dtype)
 
     def forward(self, query_feat: torch.Tensor, query_mask: torch.Tensor,
@@ -115,7 +114,7 @@ class GMD(nn.Module):
                                    word_feat, sent_embed)
         both_match_prob, _ = self.csmm(
             both_frame_feat, torch.cat([sent_embed, sent_embed], dim=0),
-            torch.cat([ori_video_mask, pseudo_video_mask], dim=0))
+            torch.cat([ori_video_mask, pseudo_video_mask], dim=0), generator)
         ori_match_prob = both_match_prob[:B]
         pseudo_match_prob = both_match_prob[B:]
         start_prob, end_prob = self.span_predictor(
@@ -168,17 +167,25 @@ class GMD(nn.Module):
                 'match_prob': match_prob}
 
     # -- serving (JAX ``models/gmd.py:197-294``) ----------------------------
+    def _cached(self) -> bool:
+        """Whether the video encoder has a query-independent block 0 to
+        cache (QAVE); the RNN encoder is run whole on each query's video."""
+        return isinstance(self.video_encoder, QueryAwareEncoder)
+
     def precompute_video(self, video_feat: torch.Tensor) -> torch.Tensor:
-        """The query-independent block-0 recurrence [V, T, 2H] of resident
-        [V, T, D] video(s): V=1 for one video, any V for a bank."""
-        return self.video_encoder.block0_rnn(video_feat)
+        """The query-independent part of resident [V, T, D] video(s): QAVE's
+        block-0 recurrence [V, T, 2H], or the features themselves where the
+        encoder has no such part. V=1 for one video, any V for a bank."""
+        if self._cached():
+            return self.video_encoder.block0_rnn(video_feat)
+        return video_feat
 
     def serve_cached_multi(self, rnn0_bank: torch.Tensor,
                            query_feat: torch.Tensor,
                            video_ids: torch.Tensor
                            ) -> Dict[str, torch.Tensor]:
         """Query i against bank video ``video_ids[i]`` of a bank of
-        block-0 recurrences [V, T, 2H]."""
+        :meth:`precompute_video` rows [V, T, ...]."""
         return self.serve_gathered(rnn0_bank[video_ids], query_feat)
 
     def serve_gathered(self, rnn0_q: torch.Tensor, query_feat: torch.Tensor
@@ -186,18 +193,26 @@ class GMD(nn.Module):
         """:meth:`serve_cached_multi` with the rows already gathered (the
         int8 bank gathers and dequantises them first)."""
         word_feat, sent_embed = self.sentence_encoder(query_feat)
-        frame_feat = self.video_encoder.finish_from_rnn0(rnn0_q, word_feat)
+        if self._cached():
+            frame_feat = self.video_encoder.finish_from_rnn0(rnn0_q,
+                                                             word_feat)
+        else:
+            frame_feat = self.video_encoder(rnn0_q, word_feat)
         return self._ground(frame_feat, word_feat, sent_embed, None)
 
     def serve_cached(self, rnn0: torch.Tensor, query_feat: torch.Tensor,
                      video_mask: Optional[torch.Tensor] = None
                      ) -> Dict[str, torch.Tensor]:
-        """Q queries against one video whose block-0 recurrence [1, T, 2H]
-        :meth:`precompute_video` made."""
+        """Q queries against one video whose :meth:`precompute_video` row
+        [1, T, ...] is ``rnn0``."""
         Q = query_feat.shape[0]
         word_feat, sent_embed = self.sentence_encoder(query_feat)
-        frame_feat = self.video_encoder.shared_video_from_rnn0(rnn0,
-                                                               word_feat)
+        if self._cached():
+            frame_feat = self.video_encoder.shared_video_from_rnn0(rnn0,
+                                                                   word_feat)
+        else:
+            frame_feat = self.video_encoder(rnn0.expand(Q, -1, -1),
+                                            word_feat)
         vmask = None
         if video_mask is not None:
             vmask = video_mask.expand(Q, video_mask.shape[-1])
@@ -207,7 +222,7 @@ class GMD(nn.Module):
                           query_feat: torch.Tensor,
                           video_mask: Optional[torch.Tensor] = None
                           ) -> Dict[str, torch.Tensor]:
-        """Q sentences [Q, N, 300] against one video [1, T, D]: block 0's
-        recurrence runs once for the video, the rest over Q."""
+        """Q sentences [Q, N, 300] against one video [1, T, D]: QAVE's
+        block-0 recurrence runs once for the video, the rest over Q."""
         return self.serve_cached(self.precompute_video(video_feat),
                                  query_feat, video_mask)

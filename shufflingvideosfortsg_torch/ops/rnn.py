@@ -14,12 +14,19 @@ without gradients, K3 and K4 with them). At a ``dtype`` of bf16 (JAX
 and the f32 sum of the two biases, K1 (in training K3 and K4) takes bf16
 xw and W_hh (its h and c stay f32) and gives bf16 outputs, dropout runs
 on the bf16 outputs, and the final states are cast to bf16.
+
+A caller that recomputes a forward (``torch.utils.checkpoint`` in QAVE's
+``remat``) draws the dropout masks first (:meth:`BiLSTM.dropout_draws`)
+and hands them to :meth:`BiLSTM.forward`, so the recompute applies the
+masks of the first run, drawn in the same count and order as a forward
+that draws its own. JAX's ``BiGRU`` (``ops/rnn.py:261``) is not ported:
+no config key and no driver path of the JAX package reaches it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,19 +38,22 @@ _DIRECTIONS = ('', '_reverse')
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            u: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverted dropout (flax ``nn.Dropout``: keep with probability 1-p,
     scale kept values by 1/(1-p)) with the mask drawn from ``generator``,
     so a run's masks follow its own seed and not the global RNG. The
     generator lives on ``x``'s device; None draws from the default one.
     The uniform draws are f32 whatever x's dtype, as JAX's bernoulli
     draws them; in bf16 x is divided by the keep rate rounded to bf16, as
-    flax divides a bf16 array by the Python float."""
+    flax divides a bf16 array by the Python float. ``u``, where given,
+    holds those uniform draws, made earlier (:meth:`BiLSTM.dropout_draws`)."""
     if not training or p <= 0.0:
         return x
     keep = 1.0 - p
-    u = torch.rand(x.shape, generator=generator, device=x.device,
-                   dtype=torch.float32)
+    if u is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device,
+                       dtype=torch.float32)
     scale = keep if x.dtype == torch.float32 else \
         float(torch.tensor(keep, dtype=x.dtype))
     return torch.where(u < keep, x / scale, torch.zeros_like(x))
@@ -97,9 +107,25 @@ class BiLSTM(nn.Module):
         w_hh = torch.stack([w.t() for w in p['weight_hh']]).contiguous()  # [2, H, 4H]
         return w_ih, b, w_hh
 
+    def dropout_draws(self, B: int, T: int, device: torch.device,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Optional[List[torch.Tensor]]:
+        """The uniform draws of the dropout masks that :meth:`forward`
+        over a [B, T, D] input would draw from ``generator``, in its
+        order (one [B, T, 2H] f32 tensor a layer but the last), or None
+        where it draws none."""
+        if not self.training or self.dropout <= 0.0:
+            return None
+        return [torch.rand((B, T, 2 * self.hidden_size), generator=generator,
+                           device=device, dtype=torch.float32)
+                for _ in range(self.num_layers - 1)]
+
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[List[torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``draws`` (:meth:`dropout_draws`), where given, are the masks'
+        uniform draws, and ``generator`` is not drawn from."""
         B, T, _ = x.shape
         H, dt = self.hidden_size, self.dtype
         hn, cn = [], []
@@ -116,6 +142,7 @@ class BiLSTM(nn.Module):
             layer_out = out.transpose(0, 1)
             if k + 1 < self.num_layers:
                 layer_out = dropout(layer_out, self.dropout, self.training,
-                                    generator)
+                                    generator,
+                                    None if draws is None else draws[k])
             inputs = layer_out
         return inputs, torch.stack(hn), torch.stack(cn)

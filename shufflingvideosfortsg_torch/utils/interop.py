@@ -12,7 +12,24 @@ JAX msgpack checkpoints reach the port through
 Layouts: ``nn.Linear`` kernel [in, out] -> weight [out, in]; the BiLSTM's
 [2, D, 4H]-stacked directions -> per-direction ``weight_ih_l{k}[_reverse]``
 [4H, D] (and ``weight_hh``, both biases); LayerNorm scale/bias ->
-weight/bias; the SCDM ``w`` [Dh, 1] -> ``w.weight`` [1, Dh].
+weight/bias; the SCDM ``w`` [Dh, 1] -> ``w.weight`` [1, Dh]; flax's
+``nn.Conv`` kernel [K, in, out] -> ``nn.Conv1d``'s weight [out, in, K].
+
+Every variant a config selects maps. Where JAX's
+``utils/torch_interop.py`` (``:78-100``, ``:205-257``) defines reference
+keys, the port's are those: ``span_predictor.predictor.cross_lstm.lstm.*``,
+``start_lstm.lstm.*``, ``end_lstm.lstm.*``, ``start_fc``, ``end_fc``,
+``csmm.temporal.lstm.lstm.*``. JAX defines none for the conv and the
+self-attention predictors (its converter raises for them) or for the RNN
+video encoder (it assumes QAVE blocks), and the reference's own modules
+for these never ran, so no reference ``.ckp`` exists to check these keys
+against. They follow the JAX tree in the pattern of the port's other
+modules: ``video_encoder.rnn_cell.lstm.*`` and ``video_encoder.norm``;
+``span_predictor.predictor.{start,end}_conv`` (``nn.Conv1d``) and
+``{start,end}_fc``; ``span_predictor.predictor.{start,end}_selfattn.
+{wq,wk,wv,wo}`` (bias-free) and ``{start,end}_fc``. Their round trip
+through the port's own ``.ckp`` (``--start_from``) is strict as every
+other module's.
 """
 
 from __future__ import annotations
@@ -49,29 +66,48 @@ def bilstm_to_torch(tree: Dict, prefix: str, num_layers: int,
                     np.asarray(tree[f'b_{name}_l{layer}'])[r])
 
 
+def _layers(tree: Dict) -> int:
+    """The depth of a BiLSTM's JAX tree (``w_ih_l{k}`` a layer)."""
+    return sum(k.startswith('w_ih_l') for k in tree)
+
+
+def _predictor_to_torch(tree: Dict, prefix: str, out: Dict) -> None:
+    """Any span predictor's tree, by its submodules: one-layer BiLSTMs
+    (``cross_lstm``, ``start_lstm``, ``end_lstm``) under ``<name>.lstm``,
+    the self-attentions' four projections, convolutions and dense
+    layers."""
+    for name, sub in tree.items():
+        p = f'{prefix}.{name}'
+        if 'w_ih_l0' in sub:
+            bilstm_to_torch(sub, f'{p}.lstm', _layers(sub), out)
+        elif 'wq' in sub:
+            for w in ('wq', 'wk', 'wv', 'wo'):
+                linear_to_torch(sub[w], f'{p}.{w}', out)
+        elif np.ndim(sub['kernel']) == 3:
+            out[f'{p}.weight'] = _f32(np.transpose(sub['kernel'], (2, 1, 0)))
+            out[f'{p}.bias'] = _f32(sub['bias'])
+        else:
+            linear_to_torch(sub, p, out)
+
+
 def state_dict_from_jax(params_np: Dict, sent_layers: int = 2,
                         video_layers: int = 2, nblocks: int = 2,
-                        predictor_name: str = 'mlp',
-                        m_temp: str = 'none',
                         baseline: bool = False) -> Dict[str, torch.Tensor]:
     """The JAX package's GMD or (``baseline``) QAVE baseline parameter
     tree -> the port's ``state_dict``. The baseline has no CSMM and no
-    discriminator.
-
-    Covers what the port builds: the 'mlp' span predictor and CSMM
-    without a temporal model; other settings raise."""
-    if predictor_name not in ('mlp', 'a'):
-        raise NotImplementedError(f'span predictor {predictor_name!r} is not '
-                                  'ported yet (only "mlp")')
-    if m_temp.lower() != 'none':
-        raise NotImplementedError(f'CSMM temporal {m_temp!r} is not ported '
-                                  'yet (only "none")')
+    discriminator. The variants (video encoder, span predictor, CSMM
+    temporal model) are read from the tree; the depth of the predictors'
+    and the CSMM's BiLSTMs too."""
     out: Dict[str, torch.Tensor] = {}
     sent = params_np['sentence_encoder']
     linear_to_torch(sent['word_embed'], 'sentence_encoder.word_embed', out)
     bilstm_to_torch(sent['rnn'], 'sentence_encoder.rnn_cell.lstm',
                     sent_layers, out)
     video = params_np['video_encoder']
+    if 'block0' not in video:  # the RNN video encoder
+        bilstm_to_torch(video['rnn'], 'video_encoder.rnn_cell.lstm',
+                        video_layers, out)
+        nblocks = 0
     for i in range(nblocks):
         block, p = video[f'block{i}'], f'video_encoder.blocks.{i}'
         bilstm_to_torch(block['rnn'], f'{p}.rnn_cell.lstm', video_layers, out)
@@ -81,12 +117,14 @@ def state_dict_from_jax(params_np: Dict, sent_layers: int = 2,
         out[f'{p}.attention.w.weight'] = _f32(np.asarray(att['w']).T)
         linear_to_torch(block['sent_linear'], f'{p}.sent_linear', out)
     layernorm_to_torch(video['norm'], 'video_encoder.norm', out)
-    pred = params_np['span_predictor']['predictor']
-    for n in ('start_mlp_1', 'start_mlp_2', 'end_mlp_1', 'end_mlp_2'):
-        linear_to_torch(pred[n], f'span_predictor.predictor.{n}', out)
+    _predictor_to_torch(params_np['span_predictor']['predictor'],
+                        'span_predictor.predictor', out)
     if baseline:
         return out
     csmm = params_np['csmm']
+    if 'temporal' in csmm:
+        bilstm_to_torch(csmm['temporal'], 'csmm.temporal.lstm.lstm',
+                        _layers(csmm['temporal']), out)
     linear_to_torch(csmm['predict_1'], 'csmm.predict.predict.0', out)
     linear_to_torch(csmm['predict_2'], 'csmm.predict.predict.2', out)
     linear_to_torch(params_np['tod']['foreback'], 'tod.foreback_context.0', out)

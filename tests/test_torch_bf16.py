@@ -74,6 +74,7 @@ from shufflingvideosfortsg_torch.serving import (MultiQueryGrounder,
                                                  _bank_rows, bank_nbytes)
 from shufflingvideosfortsg_torch.utils.interop import (load_reference_ckp,
                                                        state_dict_from_jax)
+from jax_cpu import _no_excess, _WidenedEinsum
 from test_torch_serving import _write_pack
 from torch_one_thread import one_torch_thread  # noqa: F401
 
@@ -111,21 +112,6 @@ W, D, H, MLP, MPRED = 20, 12, 128, 8, 24
 B, T, N = 16, 10, 5
 
 
-class _WidenedEinsum:
-    """``jax.numpy`` for the JAX BiLSTM, whose f32-accumulated einsums
-    take f32 operands (see the module docstring)."""
-
-    def __getattr__(self, name):
-        return getattr(jnp, name)
-
-    @staticmethod
-    def einsum(spec, *ops, preferred_element_type=None, **kw):
-        if preferred_element_type == jnp.float32:
-            ops = [o.astype(jnp.float32) for o in ops]
-        return jnp.einsum(spec, *ops,
-                          preferred_element_type=preferred_element_type, **kw)
-
-
 @pytest.fixture
 def tpu_like(monkeypatch):
     """The JAX model's Pallas kernels, interpreted, where ``fused_inference``
@@ -137,12 +123,6 @@ def tpu_like(monkeypatch):
     monkeypatch.setattr(jax_scdm_fused, 'scdm_attention_fused',
                         functools.partial(scdm_attention_fused,
                                           interpret=True))
-
-
-def _no_excess(fn, *args):
-    """``fn(*args)`` compiled with XLA's excess precision off."""
-    return jax.jit(fn).lower(*args).compile(
-        compiler_options={'xla_allow_excess_precision': False})(*args)
 
 
 def _t(a, dtype=torch.bfloat16) -> torch.Tensor:

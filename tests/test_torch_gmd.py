@@ -124,5 +124,7 @@ def test_build_model_reads_the_config_and_refuses_what_is_not_ported():
                    .state_dict())
     with pytest.raises(ValueError, match='unknown model kind'):
         build_model(params, 'graph', device='cpu')
-    with pytest.raises(NotImplementedError, match='tied_lstm'):
-        build_model(dict(params, predictor='tied_lstm'), 'gmd', device='cpu')
+    # every predictor JAX builds is ported; a name JAX does not know raises
+    # JAX's error
+    with pytest.raises(ValueError, match='unknown predictor'):
+        build_model(dict(params, predictor='boundary'), 'gmd', device='cpu')

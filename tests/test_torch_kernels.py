@@ -882,6 +882,62 @@ def _check_k3_k4_bf16(T, B, H):
     assert torch.allclose(d_w, ref, rtol=1e-3, atol=1e-4)
 
 
+# The span predictors' BiLSTMs (H = span_hidden_dim = 128, W_hh in shared
+# memory at either dtype) at the Charades width, T=128 and B=32, over the
+# 2,048-wide features of the 'tall' interaction and the 256-wide output of
+# ConditionalLSTMPredictor's start_lstm that its end_lstm reads: K1 in
+# eval, K3 and K4 under autograd, against the plain versions. f32: out
+# within K1_CUDA_TOL, each gradient within rtol 1e-3, atol 1e-4
+# (chip_smoke.py's K4 tolerances); bf16: out within K1_BF16_CUDA_TOL, each
+# gradient within K4_BF16_CUDA_SHARE of its largest |value|.
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('width', [2048, 256])
+def test_predictor_bilstm_kernels_match_plain_on_cuda(width, dtype,
+                                                      monkeypatch):
+    from shufflingvideosfortsg_torch.ops import lstm_scan as L
+    from shufflingvideosfortsg_torch.ops import rnn
+    T, B, H = 128, 32, 128
+    torch.manual_seed(width)
+    lstm = rnn.BiLSTM(width, H, 1, 0.0, dtype).cuda()
+    x = torch.randn(B, T, width, device='cuda')
+    g = torch.randn(B, T, 2 * H, device='cuda')
+
+    def run():
+        with torch.no_grad():
+            out = lstm(x)[0]
+        xg = x.clone().requires_grad_()
+        y = lstm(xg)[0]
+        return out, torch.autograd.grad((y.float() * g).sum(),
+                                        [xg, *lstm.parameters()])
+
+    def counts():
+        return (L.lstm_recurrence.launches, L.lstm_recurrence_train.launches,
+                L.lstm_recurrence_bwd.launches)
+
+    before = counts()
+    out, grads = run()
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    monkeypatch.setattr(rnn, 'lstm_recurrence', lambda xw, w: (
+        L.LSTMRecurrence.apply(xw, w) if torch.is_grad_enabled()
+        else L.lstm_recurrence_plain(xw, w)))
+    monkeypatch.setattr(L, 'lstm_recurrence_train',
+                        L.lstm_recurrence_train_plain)
+    monkeypatch.setattr(L, 'lstm_recurrence_bwd', L.lstm_recurrence_bwd_plain)
+    want_out, want_grads = run()
+    assert out.dtype == dtype
+    tol = K1_CUDA_TOL if dtype == torch.float32 else K1_BF16_CUDA_TOL
+    assert (out.float() - want_out.float()).abs().max().item() <= tol
+    for got, want in zip(grads, want_grads):
+        assert torch.isfinite(got).all()
+        if dtype == torch.float32:
+            assert torch.allclose(got, want, rtol=1e-3, atol=1e-4)
+        else:
+            assert (got - want).abs().max().item() \
+                <= K4_BF16_CUDA_SHARE * want.abs().max().item()
+
+
 # K5 at bf16: dl and each term of the backward round to bf16 at JAX's
 # points, from f32 values that a sum in another order (and the kernel's
 # tanh_fwd against torch.tanh) can move across a rounding boundary; each
