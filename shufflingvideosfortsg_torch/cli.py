@@ -48,20 +48,35 @@ training loss writes ``<alias>_99999.ckp`` and its sidecar, then raises
 (``_check_finite``, JAX ``cli.py:277``). ``grad_accum_steps`` > 1 takes
 each update's gradient over that many microbatches
 (``train/steps._backward``). ``SVTSG_TRACE_DIR=<dir>`` traces a training
-run with ``torch.profiler`` and writes a Chrome trace there. Not ported
-yet, and refused in training: ``multi_seed``, ``pipeline_stages``,
-``tensor_parallel`` and ``fsdp``.
+run with ``torch.profiler`` and writes a Chrome trace there.
+
+``multi_seed`` S > 1 trains S seeds at once (``_multiseed_setup``, JAX
+``cli.py:293-350``; ``train/multiseed.py``): one step updates every seed
+from the shared batch, each seed with its own weights, optimizer state
+and train generator, and returns the seeds' mean metrics, so logging,
+the chunks and the watchdog run as for one seed. On a card a chunk's
+step captures all S updates in one CUDA graph. Each valid pass runs per
+seed (submits ``<split>.s{i}``, ``miou_per_seed`` in ``metrics.jsonl``,
+their mean in the statistics), every seed drawing the same pseudo
+videos, and checkpoints are written per seed as
+``<alias>_<epoch:05d>_s{i}.ckp`` with their sidecars. As in JAX it
+refuses ``fsdp`` and ``start_from``, and a non-finite loss writes no
+emergency checkpoint. S = 1 is a single-seed run. Not ported yet, and
+refused in training: ``pipeline_stages``, ``tensor_parallel`` and
+``fsdp``.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import gc
 import json
 import logging
 import math
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +86,10 @@ from .data.device_bank import INDEX_KEYS, maybe_device_bank
 from .data.pipeline import BatchLoader, SentenceGroundingDataset
 from .eval.iou import retrieval_eval
 from .models.build import build_model
+from .train.multiseed import (init_multiseed_states,
+                              make_multiseed_train_step,
+                              make_multiseed_valid_step, n_seeds_of, seed_of,
+                              unstack_state)
 from .train.state import TrainState
 from .train.steps import (HOST_PAIR_KEYS, STEP_KEYS, TRAIN_KEYS,
                           make_baseline_eval_step, make_baseline_train_step,
@@ -214,19 +233,90 @@ def _log_eval_batches(logger, tag, losses: List[float], mious: List[float],
 
 
 def _seeded_model(params: Dict[str, Any], device: torch.device,
-                  kind: str = 'gmd'):
+                  kind: str = 'gmd', index: int = 0):
     """The model of ``kind`` with torch's default initialisation under
-    ``params['seed']``, built on the CPU (the same weights whatever the
-    device) and moved."""
+    ``params['seed']`` (seed ``index`` of a multi-seed run: under
+    ``seed_of(params['seed'], index)``, so index 0 is the single-seed
+    model), built on the CPU (the same weights whatever the device) and
+    moved."""
     with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(params.get('seed', 123))
+        torch.manual_seed(seed_of(params.get('seed', 123), index))
         model = build_model(params, kind, device='cpu')
     return model.to(device)
 
 
+def _multiseed_validate(params: Dict[str, Any]) -> int:
+    """Check ``--multi_seed`` combinations up front (JAX ``cli.py:293``),
+    before any checkpoint or run directory is touched. Returns S (0/1 =
+    off)."""
+    S = int(params.get('multi_seed', 0) or 0)
+    if S <= 1:
+        return S
+    if params.get('fsdp'):
+        raise ValueError('--multi_seed does not compose with --fsdp: the '
+                         'stacked seed axis changes every leaf shape the '
+                         'ZeRO-3 placement rule keys on')
+    if params.get('start_from'):
+        raise ValueError('--multi_seed cannot resume (--start_from): '
+                         'checkpoints are written per seed; restart the '
+                         'study or train the single seed you want')
+    return S
+
+
+def _seed_mean(fn):
+    """``fn`` (a multi-seed step: [S] metrics) with its metrics meaned over
+    the seeds, as JAX's ``mean_step``: a NaN in any seed shows in the
+    mean."""
+    def mean(batch, *generators):
+        return {k: v.mean(0) for k, v in fn(batch, *generators).items()}
+    return mean
+
+
+def _multiseed_step(steps):
+    """The multi-seed train step over the seeds' ``steps``
+    (``make_multiseed_train_step``) with its metrics meaned over the
+    seeds, and its ``inner`` and ``state`` where the seeds' steps have
+    them: what :func:`_train` and the chunks take for one seed's step."""
+    multi = make_multiseed_train_step(steps, len(steps))
+    step = _seed_mean(multi)
+    if hasattr(multi, 'inner'):
+        step.inner, step.state = _seed_mean(multi.inner), multi.state
+    return step
+
+
+def _multiseed_setup(params: Dict[str, Any], kind: str,
+                     device: torch.device, lg: bool, banks,
+                     steps_per_epoch: int, logger):
+    """The run's seeds (JAX ``cli.py:310``): a :class:`MultiSeedState` of
+    S seeds with ``multi_seed`` S > 1, of the one seed otherwise, seed i's
+    model built by :func:`_seeded_model` (..., i), so seed 0 is the
+    single-seed model; and each seed's train and valid step
+    (:func:`_seed_steps`), the train step carrying as ``generator`` the
+    seed's train generator, seeded with ``seed_of(seed, i)`` (the run's
+    ``seed`` for seed 0). Returns (the state, the train steps, the valid
+    steps, S), S == 0 when off."""
+    S = _multiseed_validate(params)
+    n_seeds = S if S > 1 else 0
+    stacked = init_multiseed_states(
+        lambda i: _seeded_model(params, device, kind, i),
+        range(max(n_seeds, 1)), params, steps_per_epoch)
+    train_steps, valid_steps = [], []
+    for i in range(n_seeds_of(stacked)):
+        state = unstack_state(stacked, i)
+        train_step, valid_step = _seed_steps(params, kind, state.model,
+                                             state, lg, *banks)
+        train_step.generator = torch.Generator(device).manual_seed(
+            seed_of(params.get('seed', 123), i))
+        train_steps.append(train_step)
+        valid_steps.append(valid_step)
+    if n_seeds:
+        logger.info('multi-seed: %d seeds, one train step updates each in '
+                    'turn; validation and checkpoints run per seed', n_seeds)
+    return stacked, train_steps, valid_steps, n_seeds
+
+
 def _refuse_unported_training(params: Dict[str, Any]) -> None:
     refused = {
-        'multi_seed': int(params.get('multi_seed', 0) or 0) > 1,
         'pipeline_stages': int(params.get('pipeline_stages', 0) or 0) > 0,
         'tensor_parallel': int(params.get('tensor_parallel', 0) or 0) > 1,
         'fsdp': bool(params.get('fsdp')),
@@ -322,20 +412,21 @@ class _GraphedTick:
     on a side stream: they build the kernels, fill the launch plans'
     caches and create the cuBLAS handles and workspaces (the autograd
     thread's too) and an optimizer's state, none of which a capture may
-    do. The next call captures ``fn`` on the side stream over static
-    buffers shaped like its inputs, with ``generator`` (if any) registered
-    so each replay draws what an eager call would, and replays it; every
-    later call copies its inputs into the buffers on the device and
-    replays. Each run is a real call, so ``fn`` may change state (a train
-    step, a step that draws from ``generator``): nothing is run on
+    do (a multi-seed step's: every seed's). The next call captures ``fn``
+    on the side stream over static buffers shaped like its inputs, with
+    the ``generators`` it draws from (one, or a multi-seed step's one a
+    seed) registered so each replay draws what an eager call would, and
+    replays it; every later call copies its inputs into the buffers on
+    the device and replays. Each run is a real call, so ``fn`` may change
+    state (a train step, a step that draws from a generator): nothing is run on
     throwaway inputs. The outputs of a replay are the graph's static
     tensors, overwritten by the next one. A failed capture raises."""
 
     WARMUP = 2  # eager calls before the capture
 
-    def __init__(self, fn, generator: Optional[torch.Generator] = None):
+    def __init__(self, fn, generators: Tuple[torch.Generator, ...] = ()):
         self.fn = fn
-        self.generator = generator
+        self.generators = generators
         self.calls = 0
         self.graph = None
 
@@ -353,9 +444,14 @@ class _GraphedTick:
                 current.wait_stream(self.side)
                 return out
             self.static_in = {k: v.clone() for k, v in inputs.items()}
+            # a graph left in a dead reference cycle (a step's graphs
+            # refer back to the step) must not be freed by the collector
+            # during this capture, which that would invalidate: torch no
+            # longer collects before a capture
+            gc.collect()
             graph = torch.cuda.CUDAGraph()
-            if self.generator is not None:
-                graph.register_generator_state(self.generator)
+            for gen in self.generators:
+                graph.register_generator_state(gen)
             with torch.cuda.graph(graph, stream=self.side):
                 self.static_out = self.fn(self.static_in)
             self.graph = graph
@@ -367,16 +463,18 @@ class _GraphedTick:
 
 
 def _tick_runner(step, fn, shapes, bank, device: torch.device,
-                 graphed: bool, generator=None):
-    """``fn`` itself, or on a card with ``graphed`` its :class:`_GraphedTick`,
-    kept on ``step`` by (input shapes, bank, generator): captured once per
-    step and key, its memory pool kept with it."""
+                 graphed: bool,
+                 generators: Tuple[torch.Generator, ...] = ()):
+    """``fn`` itself, or on a card with ``graphed`` its :class:`_GraphedTick`
+    over ``generators``, kept on ``step`` by (input shapes, bank,
+    generators): captured once per step and key, its memory pool kept
+    with it."""
     if not (graphed and device.type == 'cuda'):
         return fn
     cache = step.__dict__.setdefault('graphs', {})
-    key = (shapes, bank.key(), bank.feats.data_ptr(), generator)
+    key = (shapes, bank.key(), bank.feats.data_ptr(), generators)
     if key not in cache:
-        cache[key] = _GraphedTick(fn, generator)
+        cache[key] = _GraphedTick(fn, generators)
     return cache[key]
 
 
@@ -454,7 +552,7 @@ def _banked_eval_epoch(step, host_batches, bank, device: torch.device,
         return step.grouped(tick, generator)
 
     run = _tick_runner(step, tick_fn, shapes, bank, device, graphed,
-                       generator)
+                       () if generator is None else (generator,))
     outs = []
     for i in range(next(iter(dev.values())).shape[0]):
         building = getattr(run, 'graph', False) is None
@@ -497,15 +595,16 @@ def _eval_epoch(step, loader, bank, device: torch.device,
 def _banked_train_chunks_factory(train_step, bank, device: torch.device,
                                  graphed: bool = True):
     """Chunked training on a device bank (JAX ``cli.py:575``): returns
-    run(host_chunk, generator) -> {metric: chunk mean, a 0-d tensor on the
-    device}, which takes the K loader batches of ``host_chunk`` as K
-    updates of ``train_step.state``. The chunk's index arrays go up once as
+    run(host_chunk, *generators) -> {metric: chunk mean, a 0-d tensor on
+    the device}, which takes the K loader batches of ``host_chunk`` as K
+    updates of ``train_step.state`` (a multi-seed step's: every seed's,
+    with one generator a seed). The chunk's index arrays go up once as
     [K, B, ...]; the rate is set once (a chunk never straddles an epoch,
     and the schedule is epoch-granular); each update runs
-    ``train_step.inner`` on the bank and the generator, and counts itself;
-    its metrics are kept on the device, [K] of each. So a chunk
-    draws from the generator and updates the weights exactly as K calls of
-    the step would.
+    ``train_step.inner`` on the bank and the generators, and counts
+    itself; its metrics are kept on the device, [K] of each. So a chunk
+    draws from the generators and updates the weights exactly as K calls
+    of the step would.
 
     On a card with ``graphed`` the updates run through a
     :class:`_GraphedTick` kept on the step (:func:`_tick_runner`): the
@@ -514,14 +613,14 @@ def _banked_train_chunks_factory(train_step, bank, device: torch.device,
     every update runs eagerly."""
     state = train_step.state
 
-    def run(host_chunk, generator: torch.Generator):
+    def run(host_chunk, *generators: torch.Generator):
         dev, shapes = _upload(_stack_indices(host_chunk), device)
 
         def update(batch):
-            return train_step.inner(bank.attach(batch), generator)
+            return train_step.inner(bank.attach(batch), *generators)
 
         step = _tick_runner(train_step, update, shapes, bank, device,
-                            graphed, generator)
+                            graphed, generators)
         state.set_lr()
         outs = []
         for i in range(len(host_chunk)):
@@ -543,25 +642,11 @@ def main_train(params: Dict[str, Any], _graphed: bool = True
     (:func:`_banked_train_chunks_factory`), and a valid set on a bank in
     grouped ticks; on a card both run as CUDA graphs, unless
     ``_graphed=False`` (for comparisons). The train step carries the
-    run's generators, ``generator`` and ``valid_generator``."""
+    run's generators, ``generator`` and ``valid_generator`` (under
+    ``multi_seed`` each seed's step its own train generator and the
+    shared valid one)."""
     host_pair = not params.get('on_device_aug', True)
-
-    def steps(model, state, lg, device, train_bank, valid_bank):
-        valid_step = make_gmd_valid_step(model, params, lg,
-                                         _assembler(valid_bank))
-        # validation draws its pseudo videos from a stream of its own
-        valid_gen = torch.Generator(device).manual_seed(
-            params.get('seed', 123) + 0x5a11d)
-
-        def validate(loader, logger, epoch, saver):
-            return run_valid(valid_step, loader, params, logger, epoch, saver,
-                             device, valid_gen, valid_bank, _graphed)
-        train_step = make_gmd_train_step(model, state, params, lg,
-                                         _assembler(train_bank))
-        train_step.valid_generator = valid_gen
-        return train_step, validate
-
-    return _train(params, 'gmd', steps,
+    return _train(params, 'gmd',
                   HOST_PAIR_KEYS if host_pair else TRAIN_KEYS,
                   ('miou', 'loss_g', 'loss_intra', 'loss_inter', 'loss_d'),
                   host_pair, graphed=_graphed)
@@ -570,19 +655,21 @@ def main_train(params: Dict[str, Any], _graphed: bool = True
 def main_train_baseline(params: Dict[str, Any]) -> Dict[str, Any]:
     """Train the QAVE baseline on the grounding loss alone, with
     :func:`main_train`'s epochs, valid passes (:func:`run_eval_collect`),
-    checkpoints and statistics."""
+    checkpoints, statistics and ``multi_seed``."""
+    return _train(params, 'baseline', STEP_KEYS, ('miou',))
 
-    def steps(model, state, lg, device, train_bank, valid_bank):
-        eval_step = make_baseline_eval_step(model, lg,
-                                            _assembler(valid_bank))
 
-        def validate(loader, logger, epoch, saver):
-            return run_eval_collect(eval_step, loader, params, logger, epoch,
-                                    saver, device, 'val_data', valid_bank)
-        return make_baseline_train_step(model, state, params, lg,
-                                        _assembler(train_bank)), validate
-
-    return _train(params, 'baseline', steps, STEP_KEYS, ('miou',))
+def _seed_steps(params: Dict[str, Any], kind: str, model, state, lg: bool,
+                train_bank, valid_bank):
+    """(train step, valid step) of ``kind`` over one seed's model."""
+    if kind == 'gmd':
+        return (make_gmd_train_step(model, state, params, lg,
+                                    _assembler(train_bank)),
+                make_gmd_valid_step(model, params, lg,
+                                    _assembler(valid_bank)))
+    return (make_baseline_train_step(model, state, params, lg,
+                                     _assembler(train_bank)),
+            make_baseline_eval_step(model, lg, _assembler(valid_bank)))
 
 
 def _chunks(loader, size: int):
@@ -597,19 +684,25 @@ def _chunks(loader, size: int):
         yield pending
 
 
-def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
+def _train(params: Dict[str, Any], kind: str, keys, terms,
            host_pair: bool = False, graphed: bool = True) -> Dict[str, Any]:
-    """The training loop shared by the drivers. ``steps(model, state, lg,
-    device, train_bank, valid_bank)`` returns (train_step, validate);
-    ``keys`` are the batch keys a train step reads without a bank and
-    ``terms`` the metrics it logs beside the loss; ``host_pair`` has the
-    loader make the pseudo videos (and keeps the train set off the
-    bank). With a train step that has a chunked form (``step.inner``,
-    GMD's) and a train bank, ``train_scan_chunk`` steps run as one chunk
-    (``graphed`` on a card), logged and checked at chunk boundaries as
-    JAX's ``flush`` does (``cli.py:864-889``), the epoch's means weighted
-    by chunk size. The train generator goes on the step as
-    ``generator``."""
+    """The training loop shared by the drivers, of ``kind`` 'gmd' or
+    'baseline' (:func:`_seed_steps`; valid passes :func:`run_valid` or
+    :func:`run_eval_collect`). ``keys`` are the batch keys a train step
+    reads without a bank and ``terms`` the metrics it logs beside the
+    loss; ``host_pair`` has the loader make the pseudo videos (and keeps
+    the train set off the bank). With a train step that has a chunked
+    form (``step.inner``, GMD's) and a train bank, ``train_scan_chunk``
+    steps run as one chunk (``graphed`` on a card), logged and checked at
+    chunk boundaries as JAX's ``flush`` does (``cli.py:864-889``), the
+    epoch's means weighted by chunk size. GMD's valid pass draws its
+    pseudo videos from a generator of its own. The train generator goes
+    on the step as ``generator``, the valid one as ``valid_generator``.
+    With ``multi_seed`` S > 1 (:func:`_multiseed_setup`) every step
+    updates the S seeds, and the valid passes and checkpoints run per
+    seed, each seed's valid pass drawing what seed 0's does
+    (``make_multiseed_valid_step``)."""
+    _multiseed_validate(params)
     device = resolve_device(params.get('device', 'cuda'))
     _refuse_unported_training(params)
     if device.type == 'cuda':
@@ -620,7 +713,6 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
     lg = str(params['vfeat_fn']).lower() == 'lg'
     seed = params.get('seed', 123)
 
-    model = _seeded_model(params, device, kind)
     train_set = make_dataset(params, 'train_data', 'train_featpath', 'train')
     valid_set = make_dataset(params, 'val_data', 'valid_featpath', 'valid')
     train_bank = None if host_pair else \
@@ -633,26 +725,39 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
     valid_loader = BatchLoader(valid_set, params['batch_size'][2],
                                shuffle=False,
                                device_assemble=valid_bank is not None)
-    state = TrainState(model, params, steps_per_epoch=len(train_loader))
-    train_step, validate = steps(model, state, lg, device, train_bank,
-                                 valid_bank)
-    train_gen = train_step.generator = torch.Generator(device).manual_seed(
-        seed)
-    generators = {'train': train_gen}
-    if hasattr(train_step, 'valid_generator'):
-        generators['valid'] = train_step.valid_generator
+    stacked, train_steps, valid_steps, n_seeds = _multiseed_setup(
+        params, kind, device, lg, (train_bank, valid_bank),
+        len(train_loader), logger)
+    valid_gen = None
+    if kind == 'gmd':
+        # validation draws its pseudo videos from a stream of its own
+        valid_gen = torch.Generator(device).manual_seed(seed + 0x5a11d)
+        for step in train_steps:
+            step.valid_generator = valid_gen
+
+    def generators(i):
+        """Seed ``i``'s generators, as its checkpoints hold them."""
+        gens = {'train': train_steps[i].generator}
+        if valid_gen is not None:
+            gens['valid'] = valid_gen
+        return gens
+
     if params.get('start_from'):
-        # restored in place before the first step, so before any graph is
-        # captured
+        # one seed (a multi-seed run refuses to resume), restored in place
+        # before the first step, so before any graph is captured
+        state = unstack_state(stacked, 0)
         weights, resume, weights_only = load_checkpoint(params['start_from'])
-        model.load_state_dict(weights)
+        state.model.load_state_dict(weights)
         if resume is not None:
             state.load_state_dict(resume['train_state'])
             for name, gen_state in resume['generators'].items():
-                generators[name].set_state(gen_state)
+                generators(0)[name].set_state(gen_state)
         logger.warning('resume from checkpoint: %s (reference-format=%s, '
                        'step=%s)', params['start_from'], weights_only,
                        state.step)
+    train_step = (_multiseed_step(train_steps) if n_seeds
+                  else train_steps[0])
+    train_gens = tuple(step.generator for step in train_steps)
     chunk = int(params.get('train_scan_chunk', 16))
     run_chunk = None
     if hasattr(train_step, 'inner') and train_bank is not None and chunk > 1:
@@ -664,6 +769,19 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
     check_iv = params.get('nan_check_interval', 100)
     n_batches = len(train_loader)
 
+    def validate(i, epoch, generator=None):
+        """Seed ``i``'s valid pass: its mIoU."""
+        suffix = f'.s{i}' if n_seeds else ''
+        if kind == 'gmd':
+            return run_valid(valid_steps[i], valid_loader, params, logger,
+                             epoch, saver, device, generator, valid_bank,
+                             graphed, suffix)
+        return run_eval_collect(valid_steps[i], valid_loader, params,
+                                logger, epoch, saver, device,
+                                'val_data' + suffix, valid_bank)
+    valid_passes = make_multiseed_valid_step(
+        [functools.partial(validate, i) for i in range(len(valid_steps))])
+
     def check(metrics, epoch, idx, t_b, do_log):
         m = {k: float(v) for k, v in metrics.items()}
         if do_log:
@@ -671,8 +789,18 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
                         'time=%0.2fs, %s', epoch, idx, n_batches,
                         time.time() - t_b, ', '.join(
                             f'{k}: {m[k]:03.3f}' for k in ('loss',) + terms))
-        _check_finite(m['loss'], saver, model, state, generators, logger,
-                      epoch, idx)
+        if n_seeds and not math.isfinite(m['loss']):
+            # JAX's watchdog writes no emergency checkpoint here: it hands
+            # the stacked state to its serialiser, whose int() of the [S]
+            # update count raises TypeError first (utils/saver.py:221)
+            logger.error('non-finite loss %s at epoch %d batch %d; a '
+                         'multi-seed run writes no emergency checkpoint',
+                         m['loss'], epoch, idx)
+            raise FloatingPointError(f"non-finite loss {m['loss']} at "
+                                     f'epoch {epoch} batch {idx}')
+        state = unstack_state(stacked, 0)
+        _check_finite(m['loss'], saver, state.model, state, generators(0),
+                      logger, epoch, idx)
 
     trace = _start_trace(device)
     for epoch in range(start_epoch, params['epoch']):
@@ -682,7 +810,8 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
             for idx, batch in enumerate(train_loader):
                 t_b = time.time()
                 metrics = train_step(
-                    _device_batch(batch, device, keys, train_bank), train_gen)
+                    _device_batch(batch, device, keys, train_bank),
+                    *train_gens)
                 outs.append(metrics)
                 do_log = log_iv != -1 and idx % log_iv == 0
                 if do_log or idx % check_iv == 0:
@@ -691,7 +820,7 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
             weights, idx, t_b = [], 0, time.time()
             for pending in _chunks(train_loader, chunk):
                 n = len(pending)
-                metrics = run_chunk(pending, train_gen)
+                metrics = run_chunk(pending, *train_gens)
                 outs.append(metrics)
                 weights.append(n)
                 iv = max(log_iv, 1)
@@ -715,14 +844,25 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
         if (epoch + 1) % params['test_interval'] == 0 or epoch == 0:
             statistics['loss'][epoch] = round(avg_loss, 3)
         if (epoch + 1) % params['test_interval'] == 0:
-            miou = validate(valid_loader, logger, epoch, saver)
-            saver.log_metrics({'epoch': epoch, 'phase': 'valid',
-                               'miou': miou})
+            per_seed = valid_passes(epoch, generator=valid_gen)
+            miou = float(np.mean(per_seed))
+            record = {'epoch': epoch, 'phase': 'valid', 'miou': miou}
+            if n_seeds:
+                logger.info('multi-seed valid: miou per seed %s, mean %0.4f, '
+                            'std %0.4f', ['%.4f' % m for m in per_seed], miou,
+                            float(np.std(per_seed)))
+                record['miou_per_seed'] = per_seed
+            saver.log_metrics(record)
             statistics['mIoU'][epoch] = round(miou * 100, 2)
         if ((epoch + 1) % params['save_model_interval'] == 0
                 or epoch + 1 == params['epoch']):
-            logger.info('Save model in %s', saver.save_checkpoint(
-                epoch, model, state, generators))
+            for i in range(n_seeds_of(stacked)):
+                state = unstack_state(stacked, i)
+                path = saver.model_path(epoch)
+                if n_seeds:  # JAX _multiseed_save: alias_EEEEE_s{i}.ckp
+                    path = path.replace('.ckp', f'_s{i}.ckp')
+                logger.info('Save model in %s', saver.save_checkpoint(
+                    path, state.model, state, generators(i)))
     saver.wait()  # the async writer's last checkpoint is on disk
     _stop_trace(trace, params['alias'], device)
     _print_statistics(statistics)
@@ -732,11 +872,13 @@ def _train(params: Dict[str, Any], kind: str, steps, keys, terms,
 def run_valid(valid_step, loader, params, logger, epoch: int,
               saver: Optional[RunManager], device: torch.device,
               generator: torch.Generator, bank=None,
-              graphed: bool = True) -> float:
-    """One valid pass: losses, the submit JSON, the mean IoU it returns.
-    The pseudo videos come from ``generator``, batch after batch; on a
-    ``bank`` the pass is the banked epoch of :func:`_eval_epoch` in ticks
-    of ``eval_scan_group`` batches (``graphed`` on a card)."""
+              graphed: bool = True, submit_suffix: str = '') -> float:
+    """One valid pass: losses, the submit JSON (its split name followed by
+    ``submit_suffix``, a multi-seed run's ``.s{i}``), the mean IoU it
+    returns. The pseudo videos come from ``generator``, batch after
+    batch; on a ``bank`` the pass is the banked epoch of
+    :func:`_eval_epoch` in ticks of ``eval_scan_group`` batches
+    (``graphed`` on a card)."""
     pred_dict = _new_pred_dict(params)
     t0 = time.time()
     host_batches, fetched = _eval_epoch(
@@ -746,7 +888,7 @@ def run_valid(valid_step, loader, params, logger, epoch: int,
         _collect_predictions(pred_dict, batch, fetched['pred_time'][i],
                              fetched['score'][i])
     if saver is not None:
-        saver.save_submits(pred_dict, epoch, 'val_data')
+        saver.save_submits(pred_dict, epoch, 'val_data' + submit_suffix)
     miou = _avg(fetched, 'miou')
     logger.info('epoch [%03d]: elapsed time:%0.4fs, avg loss: %03.3f, '
                 'miou: %03.3f avg loss_g: %03.3f, avg loss_m1: %03.3f, '
@@ -760,7 +902,8 @@ def run_eval_collect(eval_step, loader, params, logger, epoch: int,
                      saver: Optional[RunManager], device: torch.device,
                      submit_key: str, bank=None) -> float:
     """The baseline's valid pass: the submit JSON under ``submit_key``'s
-    split and the mean IoU it returns; on a ``bank``, the banked epoch of
+    split (``'<key>.<suffix>'`` adds ``.<suffix>`` to the file's split
+    name) and the mean IoU it returns; on a ``bank``, the banked epoch of
     :func:`_eval_epoch`."""
     pred_dict = _new_pred_dict(params)
     t0 = time.time()

@@ -141,8 +141,8 @@ DEFAULTS: Dict[str, Any] = {
     "fsdp_min_bytes": 65536,      # leaves below this stay replicated
                                   # (sharding a [512] bias saves nothing
                                   # and costs an all-gather dispatch)
-    "multi_seed": 0,              # train S seeds vmapped in ONE jitted
-                                  # step (0/1 = off). Per-seed val +
+    "multi_seed": 0,              # train S seeds in ONE step, each in
+                                  # turn (0/1 = off). Per-seed val +
                                   # checkpoints (_s{i}.ckp); excludes
                                   # --fsdp / --start_from
     "pipeline_stages": 0,         # >0: DEEPENED QAVE (nblocks = stages

@@ -52,7 +52,7 @@ from .utils.device import exact_bf16_products, resolve_device
 Bank = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 _UNSHARDED = ('one card holds the port: the sharded bank and the '
               'sequence-parallel block 0 come with the parallel surfaces '
-              '(ROADMAP.md §1 item 8)')
+              '(ROADMAP.md §1, the parallel surfaces)')
 
 
 def _bank_rows(bank: Bank, video_ids: torch.Tensor) -> torch.Tensor:

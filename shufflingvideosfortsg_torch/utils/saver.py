@@ -227,7 +227,14 @@ class RunManager:
 
     def save_submits(self, submits: Dict[str, Any], step: int,
                      key: str = 'val_data') -> str:
-        split = self.params[key].split('/')[-1].split('.')[0]
+        """Write ``submits`` as ``<alias>_<step:05d>_<split>.json``, the
+        split named by the file of ``params[key]``; a key
+        ``'<key>.<suffix>'`` (a multi-seed run's ``val_data.s{i}``) writes
+        ``<split>.<suffix>``, as JAX's does (``utils/saver.py:162``)."""
+        base, _, suffix = key.partition('.')
+        split = self.params[base].split('/')[-1].split('.')[0]
+        if suffix:
+            split = f'{split}.{suffix}'
         file_name = os.path.join(
             self.submits_folder,
             '%s_%05d_%s.json' % (self.params['alias'], step, split))

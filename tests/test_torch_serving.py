@@ -334,9 +334,9 @@ def test_ground_topk_matches_jax(weights):
 def test_mesh_options_raise_on_one_card(weights, tmp_path):
     _, pg = grounders(weights)
     root = _write_pack(np.random.RandomState(9), str(tmp_path / 'pack'))
-    with pytest.raises(NotImplementedError, match='item 8'):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md §1, the parallel surfaces'):
         pg.set_corpus(PackedFeatureSource(root), shard=True)
-    with pytest.raises(NotImplementedError, match='item 8'):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md §1, the parallel surfaces'):
         pg.set_video_sharded(np.zeros((T, DV), np.float32))
     with pytest.raises(ValueError, match='raw or int8'):
         pg.set_corpus(PackedFeatureSource(root), dtype='bf16')

@@ -5,7 +5,7 @@ port's ``main_test`` evaluates; ``--start_from auto`` resumes at the next
 epoch (as ``tests/test_drivers.py``'s JAX run does); a non-finite loss
 leaves the emergency checkpoint; async checkpoints equal synchronous
 ones; ``SVTSG_TRACE_DIR`` writes a trace; unported options and a missing
-card raise before any work."""
+card raise before any work. Multi-seed runs: ``test_torch_multiseed.py``."""
 
 import json
 import os
@@ -164,8 +164,7 @@ def test_trace_dir_writes_a_chrome_trace(corpus, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('flag', [
-    ['--multi_seed', '2'], ['--pipeline_stages', '1'],
-    ['--tensor_parallel', '2'], ['--fsdp']])
+    ['--pipeline_stages', '1'], ['--tensor_parallel', '2'], ['--fsdp']])
 def test_train_driver_refuses_what_is_not_ported(corpus, flag):
     root, argv, _ = corpus
     params = cli.parse_params(argv + ['--alias', 'refused', '--device', 'cpu',
