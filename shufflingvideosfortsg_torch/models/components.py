@@ -20,9 +20,8 @@ each result rounded, as XLA rounds them with excess precision off; the
 span heads' softmax takes f32 logits (``:328-336``). Every BiLSTM,
 the span predictors' included (JAX runs those through ``lax.scan``, the
 same function), is ``ops/rnn.BiLSTM``: K1 without gradients, K3 and K4
-with them, on a card. JAX's ``models/transformer.py``, ``models/graph.py``
-and ``models/content_predictors.py`` are not ported: no config key and
-no driver path of the JAX package reaches them.
+with them, on a card. The modules no config key reaches are beside this
+one: ``transformer.py``, ``graph.py`` and ``content_predictors.py``.
 """
 
 from __future__ import annotations
@@ -469,18 +468,24 @@ class ConvPredictor(nn.Module):
 
 
 class MultiHead(nn.Module):
-    """Multi-head self-attention (``:480-495``): bias-free ``wq``, ``wk``,
-    ``wv`` and ``wo`` of the input width D, logits scaled by sqrt(D)
-    (``ops/attention.py``). ``dropout`` is accepted and unused, as in
+    """Multi-head attention (``:464-480``): bias-free ``wq``, ``wk``,
+    ``wv`` and ``wo`` onto the query's width D, logits scaled by sqrt(D)
+    (``ops/attention.py``), ``causal`` masking as JAX's. ``kv_dim`` is
+    the keys' and values' width where it is not D (the cross-attention of
+    ``models/transformer.py``). ``dropout`` is accepted and unused, as in
     JAX."""
 
     def __init__(self, dim: int, n_heads: int, dropout: float = 0.0,
-                 dtype: torch.dtype = F32):
+                 dtype: torch.dtype = F32, causal: bool = False,
+                 kv_dim: Optional[int] = None):
         super().__init__()
         self.dtype = dtype
         self.n_heads = n_heads
-        for name in ('wq', 'wk', 'wv', 'wo'):
-            setattr(self, name, nn.Linear(dim, dim, bias=False))
+        self.causal = causal
+        kv_dim = kv_dim or dim
+        for name, d_in in (('wq', dim), ('wk', kv_dim), ('wv', kv_dim),
+                           ('wo', dim)):
+            setattr(self, name, nn.Linear(d_in, dim, bias=False))
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor) -> torch.Tensor:
@@ -488,7 +493,8 @@ class MultiHead(nn.Module):
         q = linear(self.wq, query, self.dtype)
         k = linear(self.wk, key, self.dtype)
         v = linear(self.wv, value, self.dtype)
-        out = multi_head_attention(q, k, v, self.n_heads, scale_dim=D)
+        out = multi_head_attention(q, k, v, self.n_heads, scale_dim=D,
+                                   causal=self.causal)
         return linear(self.wo, out, self.dtype)
 
 

@@ -45,6 +45,12 @@ at once, so that the grid fills whole waves), and the S partial tiles are
 added through distributed shared memory in rank order: a fixed order, one
 launch; with bf16 out and weights the products run on the bf16 tensor
 cores. ``launches`` counts launches: one a call.
+
+K1 without gradients is the custom op ``svtsg::lstm_recurrence``
+(:data:`lstm_recurrence_op`: the plain version on the CPU, the launch on
+a card, its output shapes on fake tensors), so that ``torch.export``
+traces it as one node; its launches count inside the op, also when an
+exported program runs it.
 """
 
 from __future__ import annotations
@@ -507,6 +513,17 @@ def lstm_recurrence_plain(xw_flat: Tensor, w_hh: Tensor
     return out, h_T, c_T
 
 
+def _one_device(name: str, tensors) -> None:
+    """Inputs that are not all on the CPU must lie on one CUDA device:
+    anything else (a 'meta' tensor, CPU beside CUDA) raises before the
+    op is dispatched."""
+    dev = tensors[0].device
+    if not (dev.type in ('cpu', 'cuda')
+            and all(t.device == dev for t in tensors)):
+        raise ValueError(f'{name} inputs must all lie on the CPU or on one '
+                         f'CUDA device, got {[str(t.device) for t in tensors]}')
+
+
 def lstm_recurrence(xw_flat: Tensor, w_hh: Tensor
                     ) -> Tuple[Tensor, Tensor, Tensor]:
     """Run both directions of one BiLSTM layer.
@@ -521,23 +538,51 @@ def lstm_recurrence(xw_flat: Tensor, w_hh: Tensor
     [2, B, H] f32).
 
     When autograd needs a gradient of either input, the call goes through
-    :class:`LSTMRecurrence` (K3 forward, K4 backward). Otherwise CPU
-    tensors take :func:`lstm_recurrence_plain` and CUDA tensors launch K1
-    (``csrc/lstm_scan.cu``) or raise: it takes contiguous inputs on one
-    card, any T >= 1, H a multiple of 8 (a cluster's 8 blocks take H/8
-    units each) and any B, in one launch: the batch's row slices go to
-    clusters that run independently.
+    :class:`LSTMRecurrence` (K3 forward, K4 backward). Otherwise it is the
+    custom op ``svtsg::lstm_recurrence`` (:data:`lstm_recurrence_op`), the
+    one route of eager calls and of programs that ``torch.export`` traces
+    (``utils/aot.py``): CPU tensors take :func:`lstm_recurrence_plain`
+    and CUDA tensors launch K1 (``csrc/lstm_scan.cu``) or raise: it takes
+    contiguous inputs on one card, any T >= 1, H a multiple of 8 (a
+    cluster's 8 blocks take H/8 units each) and any B, in one launch: the
+    batch's row slices go to clusters that run independently.
     """
     if torch.is_grad_enabled() and (xw_flat.requires_grad
                                     or w_hh.requires_grad):
         return LSTMRecurrence.apply(xw_flat, w_hh)
     _check_inputs(xw_flat, w_hh)
-    if _on_cpu(xw_flat, w_hh):
-        return lstm_recurrence_plain(xw_flat, w_hh)
+    _one_device('lstm_recurrence', (xw_flat, w_hh))
+    return lstm_recurrence_op(xw_flat, w_hh)
+
+
+@torch.library.custom_op('svtsg::lstm_recurrence', mutates_args=(),
+                         device_types='cpu',
+                         schema='(Tensor xw_flat, Tensor w_hh) '
+                                '-> (Tensor, Tensor, Tensor)')
+def lstm_recurrence_op(xw_flat: Tensor, w_hh: Tensor
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K1 as the custom op ``svtsg::lstm_recurrence``; CPU tensors take
+    :func:`lstm_recurrence_plain`."""
+    return lstm_recurrence_plain(xw_flat, w_hh)
+
+
+@lstm_recurrence_op.register_kernel('cuda')
+def _lstm_recurrence_cuda(xw_flat: Tensor, w_hh: Tensor
+                          ) -> Tuple[Tensor, Tensor, Tensor]:
     out, _, h_T, c_T = _launch_forward('lstm_recurrence', xw_flat, w_hh,
                                        FLAT, with_c_seq=False)
     lstm_recurrence.launches += 1
     return out, h_T, c_T
+
+
+@lstm_recurrence_op.register_fake
+def _lstm_recurrence_fake(xw_flat: Tensor, w_hh: Tensor
+                          ) -> Tuple[Tensor, Tensor, Tensor]:
+    T, B, H = xw_flat.shape[0], xw_flat.shape[1], w_hh.shape[1]
+    f32 = torch.float32
+    return (xw_flat.new_empty(T, B, 2 * H),
+            xw_flat.new_empty(2, B, H, dtype=f32),
+            xw_flat.new_empty(2, B, H, dtype=f32))
 
 
 lstm_recurrence.launches = 0
@@ -666,6 +711,13 @@ class LSTMRecurrence(torch.autograd.Function):
 
 # --- stacked layout: K6a, K6b, K6c, K6d --------------------------------------
 
+def sigmoid_bf16(v: Tensor) -> Tensor:
+    """The sigmoid of a bf16 tensor as XLA takes it: 1 / (1 + exp(-v)),
+    one rounded bf16 operation after another."""
+    one = torch.ones((), dtype=v.dtype, device=v.device)
+    return one / (one + torch.exp(-v))
+
+
 def _stacked_forward_plain(xw: Tensor, w_hh: Tensor, gates_bf16: bool):
     """The stacked recurrence as PyTorch operations, with the rounding
     points of the JAX bodies (``ops/pallas/lstm_scan.py:115-140``, :356-370):
@@ -681,11 +733,6 @@ def _stacked_forward_plain(xw: Tensor, w_hh: Tensor, gates_bf16: bool):
     c = xw.new_zeros(2, B, H, dtype=f32)
     out = xw.new_empty(T, 2, B, H)
     c_seq = xw.new_empty(T, 2, B, H, dtype=f32)
-    one = torch.ones((), dtype=bf16, device=xw.device)
-
-    def sigmoid_bf16(v):
-        return one / (one + torch.exp(-v))
-
     for s in range(T):
         gates = torch.baddbmm(xw[s].to(f32), h.to(w_hh.dtype).to(f32), w)
         if gates_bf16:

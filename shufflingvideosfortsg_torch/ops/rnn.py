@@ -19,8 +19,12 @@ A caller that recomputes a forward (``torch.utils.checkpoint`` in QAVE's
 ``remat``) draws the dropout masks first (:meth:`BiLSTM.dropout_draws`)
 and hands them to :meth:`BiLSTM.forward`, so the recompute applies the
 masks of the first run, drawn in the same count and order as a forward
-that draws its own. JAX's ``BiGRU`` (``ops/rnn.py:261``) is not ported:
-no config key and no driver path of the JAX package reaches it.
+that draws its own.
+
+:class:`BiGRU` is JAX's ``BiGRU`` (``ops/rnn.py:261-316``), which runs
+through ``lax.scan`` and no TPU kernel: a loop of PyTorch operations in
+JAX's order, with ``nn.GRU``'s parameter names (gate order r, z, n) and
+no call of ``nn.GRU`` or cuDNN.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 from torch import nn
 
 from .dense import dense
-from .lstm_scan import lstm_recurrence
+from .lstm_scan import lstm_recurrence, sigmoid_bf16
 
 _DIRECTIONS = ('', '_reverse')
 
@@ -146,3 +150,81 @@ class BiLSTM(nn.Module):
                                     None if draws is None else draws[k])
             inputs = layer_out
         return inputs, torch.stack(hn), torch.stack(cn)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` at x's dtype (f32 or bf16)."""
+    return torch.sigmoid(x) if x.dtype == torch.float32 else sigmoid_bf16(x)
+
+
+class BiGRU(nn.Module):
+    """Bidirectional ``num_layers``-deep GRU over [B, T, D] inputs (JAX
+    ``ops/rnn.py:261-316``, the reference's ``RNN.py:4-23``).
+
+    Parameters as ``nn.GRU`` holds them (``weight_ih_l{k}[_reverse]``
+    [3H, D], ``weight_hh_l{k}[_reverse]`` [3H, H], both biases [3H], gate
+    order r, z, n, each U(-1/sqrt(H), 1/sqrt(H))); both biases stay apart,
+    since the candidate takes ``n = tanh(xw_n + r * (h W_hn + b_hn))``.
+    Returns (outputs [B, T, 2H], h_n [2L, B, H]), layer-major, forward
+    before backward. In ``dtype`` (f32 or bf16) as JAX: the input cast,
+    each projection a product summed in f32 and rounded, then its bias
+    added; the state and every gate operation in ``dtype``. Dropout
+    between layers, in training only, from ``generator``."""
+
+    def __init__(self, input_size: int, hidden_size: int,
+                 num_layers: int = 1, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.input_size = input_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.dropout = dropout
+        self.dtype = dtype
+        H = hidden_size
+        for k in range(num_layers):
+            d_in = input_size if k == 0 else 2 * H
+            for sfx in _DIRECTIONS:
+                for name, shape in (('weight_ih', (3 * H, d_in)),
+                                    ('weight_hh', (3 * H, H)),
+                                    ('bias_ih', (3 * H,)),
+                                    ('bias_hh', (3 * H,))):
+                    self.register_parameter(f'{name}_l{k}{sfx}',
+                                            nn.Parameter(torch.empty(shape)))
+        bound = 1.0 / math.sqrt(H)
+        for p in self.parameters():
+            nn.init.uniform_(p, -bound, bound)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        T, H, dt = x.shape[1], self.hidden_size, self.dtype
+        hn = []
+        inputs = x.to(dt)
+        for k in range(self.num_layers):
+            p = {n: [getattr(self, f'{n}_l{k}{sfx}') for sfx in _DIRECTIONS]
+                 for n in ('weight_ih', 'weight_hh', 'bias_ih', 'bias_hh')}
+            # direction 1 reads the time-reversed input; xw [T, 2, B, 3H]
+            xw = torch.stack([dense(src, p['weight_ih'][d], p['bias_ih'][d],
+                                    dt)
+                              for d, src in enumerate((inputs,
+                                                       inputs.flip(1)))]
+                             ).permute(2, 0, 1, 3)
+            w_hh = torch.stack([w.t() for w in p['weight_hh']]).to(dt)
+            b_hh = torch.stack(p['bias_hh']).to(dt)[:, None, :]
+            h = xw.new_zeros(xw.shape[1:-1] + (H,))
+            steps = []
+            for t in range(T):
+                hw = torch.bmm(h, w_hh) + b_hh
+                r = _sigmoid(xw[t, ..., :H] + hw[..., :H])
+                z = _sigmoid(xw[t, ..., H:2 * H] + hw[..., H:2 * H])
+                n = torch.tanh(xw[t, ..., 2 * H:] + r * hw[..., 2 * H:])
+                h = (1 - z) * n + z * h
+                steps.append(h)
+            out = torch.stack(steps, dim=2)  # [2, B, T, H]
+            hn += [h[0], h[1]]
+            layer_out = torch.cat([out[0], out[1].flip(1)], dim=-1)
+            if k + 1 < self.num_layers:
+                layer_out = dropout(layer_out, self.dropout, self.training,
+                                    generator)
+            inputs = layer_out
+        return inputs, torch.stack(hn)

@@ -211,17 +211,48 @@ def scdm_attention_fused(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
     pairs and the logits and the context are ``mma.sync`` products on the
     tensor cores. The sums run in a fixed order, so two runs give equal
     bits. It has no backward: call it with gradients off, or call
-    :func:`scdm_attention_fused_trainable`.
+    :func:`scdm_attention_fused_trainable`. Without gradients the call is
+    the custom op ``svtsg::scdm_attention`` (:data:`scdm_attention_op`),
+    the one route of eager calls and of programs that ``torch.export``
+    traces (``utils/aot.py``).
     """
     args = (video_proj, sent_proj, w, sent_feat)
     _check_inputs(*args)
-    if all(a.device.type == 'cpu' for a in args):
-        return scdm_attention_plain(*args)
+    cpu = all(a.device.type == 'cpu' for a in args)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        if cpu:  # differentiable by autograd
+            return scdm_attention_plain(*args)
         raise RuntimeError('scdm_attention_fused has no backward; call it '
                            'under torch.no_grad() or call '
                            'scdm_attention_fused_trainable')
-    return _launch_forward(args, want_p=False)[0]
+    if not cpu:
+        _cuda_device('scdm_attention_fused', args)
+    return scdm_attention_op(*args)
+
+
+@torch.library.custom_op('svtsg::scdm_attention', mutates_args=(),
+                         device_types='cpu',
+                         schema='(Tensor video_proj, Tensor sent_proj, '
+                                'Tensor w, Tensor sent_feat) -> Tensor')
+def scdm_attention_op(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
+                      sent_feat: Tensor) -> Tensor:
+    """K2 as the custom op ``svtsg::scdm_attention``; CPU tensors take
+    :func:`scdm_attention_plain`."""
+    return scdm_attention_plain(video_proj, sent_proj, w, sent_feat)
+
+
+@scdm_attention_op.register_kernel('cuda')
+def _scdm_attention_cuda(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
+                         sent_feat: Tensor) -> Tensor:
+    return _launch_forward((video_proj, sent_proj, w, sent_feat),
+                           want_p=False)[0]
+
+
+@scdm_attention_op.register_fake
+def _scdm_attention_fake(video_proj: Tensor, sent_proj: Tensor, w: Tensor,
+                         sent_feat: Tensor) -> Tensor:
+    B, T = video_proj.shape[0], video_proj.shape[1]
+    return video_proj.new_empty(B, T, sent_feat.shape[-1])
 
 
 scdm_attention_fused.launches = 0

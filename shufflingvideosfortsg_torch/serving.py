@@ -27,6 +27,11 @@ into batches of ``query_batch`` (the last padded by repeating its last
 row, the padding trimmed), dispatches every batch from pinned host memory
 without waiting, and fetches the results after the loop.
 
+A batch runs through module functions of the model and the resident
+state (:func:`precompute`, :func:`serve_features`, :func:`serve_tokens`,
+:func:`serve_bank`, :func:`serve_bank_tokens`), which ``utils/aot.py``
+exports as they are; the batches are ``utils/batches.in_batches``.
+
 On a card the recurrences are K1 (``csrc/lstm_scan.cu``) and the word
 attention K2 (``csrc/scdm.cu``); on the CPU their plain versions. One card:
 the JAX package's mesh options (``set_corpus(shard=True)``,
@@ -47,6 +52,7 @@ import torch
 
 from .models.build import build_model
 from .ops.span import span_decode, span_topk_nms
+from .utils.batches import check_rows, in_batches, put
 from .utils.device import exact_bf16_products, resolve_device
 
 Bank = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
@@ -78,11 +84,47 @@ def _quantize(rnn0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
-def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
-    """``a`` with its last row repeated up to ``n`` rows."""
-    if len(a) == n:
-        return a
-    return np.concatenate([a, np.repeat(a[-1:], n - len(a), axis=0)])
+# -- one batch on the device: the functions that utils/aot.py exports ---------
+# Each takes the model and the resident state as arguments, so that the
+# live grounder and its exported programs run the same code.
+
+@torch.no_grad()
+def precompute(model, videos: torch.Tensor) -> torch.Tensor:
+    """The query-independent part of videos [V, T, D] (QAVE's block 0)."""
+    return model.precompute_video(videos.float())
+
+
+def embed(emb: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:
+    """Token ids [Q, N] as their rows of the vocabulary [V_words, 300]."""
+    return emb.index_select(0, token_ids.reshape(-1).long()).view(
+        *token_ids.shape, -1)
+
+
+@torch.no_grad()
+def serve_features(model, rnn0: torch.Tensor, queries: torch.Tensor):
+    """(spans, scores) of queries [Q, N, 300] against one video's
+    ``rnn0`` [1, T, 2H]."""
+    out = model.serve_cached(rnn0, queries.float())
+    return span_decode(out['start_prob'], out['end_prob'])
+
+
+def serve_tokens(model, rnn0: torch.Tensor, emb: torch.Tensor,
+                 token_ids: torch.Tensor):
+    return serve_features(model, rnn0, embed(emb, token_ids))
+
+
+@torch.no_grad()
+def serve_bank(model, bank: Bank, queries: torch.Tensor,
+               video_ids: torch.Tensor):
+    """(spans, scores) of query i against bank row ``video_ids[i]``."""
+    out = model.serve_gathered(_bank_rows(bank, video_ids.long()),
+                               queries.float())
+    return span_decode(out['start_prob'], out['end_prob'])
+
+
+def serve_bank_tokens(model, bank: Bank, emb: torch.Tensor,
+                      token_ids: torch.Tensor, video_ids: torch.Tensor):
+    return serve_bank(model, bank, embed(emb, token_ids), video_ids)
 
 
 def bank_nbytes(bank: Optional[Bank]) -> int:
@@ -127,27 +169,12 @@ class MultiQueryGrounder:
 
     # -- host to device ----------------------------------------------------
     def _put(self, a: np.ndarray, dtype) -> torch.Tensor:
-        """``a`` as ``dtype`` on the device: on a card from pinned host
-        memory without waiting, ordered on the current stream."""
-        t = torch.from_numpy(np.ascontiguousarray(a, dtype))
-        if self.device.type != 'cuda':
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
-    def _check_rows(self, ids: np.ndarray, n: int, what: str) -> np.ndarray:
-        """Indices from outside, checked on the host: an index out of range
-        on the card would be a device-side assert, not an error."""
-        ids = np.asarray(ids)
-        if ids.size and (ids.min() < 0 or ids.max() >= n):
-            raise IndexError(f'{what} outside [0, {n}): '
-                             f'[{ids.min()}, {ids.max()}]')
-        return ids
+        return put(a, dtype, self.device)
 
     def _check_tokens(self, token_ids: np.ndarray) -> np.ndarray:
         if self._resident_emb is None:
             raise RuntimeError('no vocabulary set: call set_vocab first')
-        return self._check_rows(token_ids, self._resident_emb.shape[0],
-                                'token ids')
+        return check_rows(token_ids, self._resident_emb.shape[0], 'token ids')
 
     def _resident_video(self) -> torch.Tensor:
         if self._resident_rnn0 is None:
@@ -165,48 +192,27 @@ class MultiQueryGrounder:
         return (bank[0] if isinstance(bank, tuple) else bank).shape[0]
 
     # -- one batch on the device (the gateway calls these too) -------------
-    @torch.no_grad()
     def _serve(self, queries: torch.Tensor):
-        out = self.model.serve_cached(self._resident_video(), queries.float())
-        return span_decode(out['start_prob'], out['end_prob'])
-
-    @torch.no_grad()
-    def _embed(self, token_ids: torch.Tensor) -> torch.Tensor:
-        return self._resident_emb.index_select(
-            0, token_ids.reshape(-1).long()).view(*token_ids.shape, -1)
+        return serve_features(self.model, self._resident_video(), queries)
 
     def _serve_tokens(self, token_ids: torch.Tensor):
-        return self._serve(self._embed(token_ids))
+        return serve_tokens(self.model, self._resident_video(),
+                            self._resident_emb, token_ids)
 
-    @torch.no_grad()
     def _serve_multi(self, queries: torch.Tensor, video_ids: torch.Tensor):
-        rows = _bank_rows(self._bank(), video_ids.long())
-        out = self.model.serve_gathered(rows, queries.float())
-        return span_decode(out['start_prob'], out['end_prob'])
+        return serve_bank(self.model, self._bank(), queries, video_ids)
 
     def _serve_multi_tokens(self, token_ids: torch.Tensor,
                             video_ids: torch.Tensor):
-        return self._serve_multi(self._embed(token_ids), video_ids)
+        return serve_bank_tokens(self.model, self._bank(), self._resident_emb,
+                                 token_ids, video_ids)
 
-    @torch.no_grad()
     def _precompute(self, videos: torch.Tensor) -> torch.Tensor:
-        return self.model.precompute_video(videos.float())
+        return precompute(self.model, videos)
 
     def _batches(self, serve, arrays: Sequence[Tuple[np.ndarray, type]]
                  ) -> Tuple[np.ndarray, np.ndarray]:
-        """serve(*device batches) -> (spans, scores) over batches of
-        ``query_batch`` rows of each (array, ship dtype), the last padded
-        by repeating its last row; every batch is dispatched before the
-        first fetch, and the padding is trimmed. Spans come back int32."""
-        Q, qb = len(arrays[0][0]), self.query_batch
-        outs = []
-        for i in range(0, Q, qb):
-            n = min(qb, Q - i)
-            outs.append((n, serve(*[self._put(_pad_rows(a[i:i + qb], qb), dt)
-                                    for a, dt in arrays])))
-        spans = [p.cpu().numpy()[:n].astype(np.int32) for n, (p, _) in outs]
-        scores = [s.cpu().numpy()[:n] for n, (_, s) in outs]
-        return np.concatenate(spans), np.concatenate(scores)
+        return in_batches(serve, arrays, self.query_batch, self.device)
 
     # -- residency ---------------------------------------------------------
     def set_vocab(self, embeddings: np.ndarray) -> None:
@@ -304,7 +310,7 @@ class MultiQueryGrounder:
     def ground_bank(self, sent_feats: np.ndarray, video_ids: np.ndarray
                     ) -> Tuple[np.ndarray, np.ndarray]:
         """Query i (features) against resident bank row ``video_ids[i]``."""
-        ids = self._check_rows(video_ids, self._bank_size(), 'video ids')
+        ids = check_rows(video_ids, self._bank_size(), 'video ids')
         return self._batches(self._serve_multi,
                              [(sent_feats, self._ship_np), (ids, np.int32)])
 
@@ -319,7 +325,7 @@ class MultiQueryGrounder:
                       ) -> Tuple[np.ndarray, np.ndarray]:
         """Token-id query i [N] against resident bank row
         ``video_ids[i]``."""
-        ids = self._check_rows(video_ids, self._bank_size(), 'video ids')
+        ids = check_rows(video_ids, self._bank_size(), 'video ids')
         token_ids = self._check_tokens(token_ids)
         return self._batches(self._serve_multi_tokens,
                              [(token_ids, np.int32), (ids, np.int32)])

@@ -14,6 +14,10 @@ Layouts: ``nn.Linear`` kernel [in, out] -> weight [out, in]; the BiLSTM's
 [4H, D] (and ``weight_hh``, both biases); LayerNorm scale/bias ->
 weight/bias; the SCDM ``w`` [Dh, 1] -> ``w.weight`` [1, Dh]; flax's
 ``nn.Conv`` kernel [K, in, out] -> ``nn.Conv1d``'s weight [out, in, K].
+The modules no config key reaches map one by one: ``bigru_to_torch``
+(``ops/rnn.BiGRU``), ``dense_tree_to_torch`` (``models/transformer.py``,
+``models/graph.py``) and ``_predictor_to_torch`` (the span and content
+predictors).
 
 Every variant a config selects maps. Where JAX's
 ``utils/torch_interop.py`` (``:78-100``, ``:205-257``) defines reference
@@ -67,15 +71,39 @@ def bilstm_to_torch(tree: Dict, prefix: str, num_layers: int,
 
 
 def _layers(tree: Dict) -> int:
-    """The depth of a BiLSTM's JAX tree (``w_ih_l{k}`` a layer)."""
+    """The depth of a BiLSTM's or BiGRU's JAX tree (``w_ih_l{k}`` a
+    layer)."""
     return sum(k.startswith('w_ih_l') for k in tree)
 
 
+def bigru_to_torch(tree: Dict, prefix: str, out: Dict) -> None:
+    """JAX ``BiGRU``'s tree (``w_ih_l{k}`` [2, D, 3H], ``w_hh_l{k}``
+    [2, H, 3H], ``b_ih_l{k}``, ``b_hh_l{k}`` [2, 3H]) -> ``ops/rnn.BiGRU``'s
+    ``nn.GRU`` names: the BiLSTM's layout with 3H gates."""
+    bilstm_to_torch(tree, prefix, _layers(tree), out)
+
+
+def dense_tree_to_torch(tree: Dict, prefix: str, out: Dict) -> None:
+    """A tree of dense layers and LayerNorms under nested submodule names
+    (``models/transformer.py``, ``models/graph.py``): a ``kernel`` leaf is
+    an ``nn.Linear``, a ``scale`` leaf an ``nn.LayerNorm``, at the same
+    dotted path."""
+    if 'kernel' in tree:
+        linear_to_torch(tree, prefix, out)
+    elif 'scale' in tree:
+        layernorm_to_torch(tree, prefix, out)
+    else:
+        for name, sub in tree.items():
+            dense_tree_to_torch(sub, f'{prefix}.{name}' if prefix else name,
+                                out)
+
+
 def _predictor_to_torch(tree: Dict, prefix: str, out: Dict) -> None:
-    """Any span predictor's tree, by its submodules: one-layer BiLSTMs
-    (``cross_lstm``, ``start_lstm``, ``end_lstm``) under ``<name>.lstm``,
-    the self-attentions' four projections, convolutions and dense
-    layers."""
+    """Any span predictor's tree, the content predictors' too
+    (``models/content_predictors.py``), by its submodules: BiLSTMs
+    (``cross_lstm``, ``start_lstm``, ``end_lstm``, ``content_lstm``) under
+    ``<name>.lstm``, the self-attentions' four projections, convolutions
+    and dense layers."""
     for name, sub in tree.items():
         p = f'{prefix}.{name}'
         if 'w_ih_l0' in sub:

@@ -93,6 +93,25 @@ def test_scans_cover_the_serving_modules():
         assert os.path.isfile(path), path
 
 
+ZOO_AND_AOT_MODULES = ('shufflingvideosfortsg_torch.utils.aot',
+                       'shufflingvideosfortsg_torch.utils.batches',
+                       'shufflingvideosfortsg_torch.export_serving',
+                       'shufflingvideosfortsg_torch.measure_dispatch',
+                       'shufflingvideosfortsg_torch.ops.rnn',
+                       'shufflingvideosfortsg_torch.models.transformer',
+                       'shufflingvideosfortsg_torch.models.graph',
+                       'shufflingvideosfortsg_torch.models.content_predictors')
+
+
+def test_scans_cover_the_aot_and_zoo_modules():
+    """The AOT artifacts, their command line and the modules no config
+    key reaches are in what the two scans walk."""
+    assert set(ZOO_AND_AOT_MODULES) <= set(_port_modules())
+    for name in ZOO_AND_AOT_MODULES:
+        path = os.path.join(REPO, *name.split('.')) + '.py'
+        assert os.path.isfile(path), path
+
+
 def test_serving_runs_on_cuda_by_default(monkeypatch):
     """The grounder's device defaults to ``cuda`` and a missing card
     raises before any work; ``profile_serve`` measures on a card only."""
