@@ -61,14 +61,33 @@ their mean in the statistics), every seed drawing the same pseudo
 videos, and checkpoints are written per seed as
 ``<alias>_<epoch:05d>_s{i}.ckp`` with their sidecars. As in JAX it
 refuses ``fsdp`` and ``start_from``, and a non-finite loss writes no
-emergency checkpoint. S = 1 is a single-seed run. Not ported yet, and
-refused in training: ``pipeline_stages``, ``tensor_parallel`` and
-``fsdp``.
+emergency checkpoint. S = 1 is a single-seed run.
+
+On the data axis (``parallel/mesh.py``; JAX's multi-host contract,
+``cli.py:191-208``) the drivers run under ``torchrun``, one rank a card:
+:func:`~.parallel.mesh.create_mesh` starts the process group from its
+environment (or takes the caller's) and every rank loads its stripe of
+the loaders' order, ``batch_size`` rows a batch (the global batch is
+``batch_size`` times the world size), runs its steps on its rows with
+the gradients and metrics meaned over the ranks, and its valid and test
+passes on its rows, their per-batch loss and mIoU meaned over the ranks
+(the banked evaluation one batch a tick, as JAX's ``group = 1``). Each
+rank writes its own ``.part{rank}`` submit (``merge_submits`` joins
+them); rank 0 alone logs, writes ``params.json``, ``metrics.jsonl`` and
+the checkpoints, then the ranks meet at a barrier. Training broadcasts
+rank 0's state at the start and after ``--start_from``. A graphed chunk
+captures the NCCL all-reduces in its CUDA graph; gloo collectives cannot
+be captured, so a gloo group on a card needs ``_graphed=False``.
+``fsdp`` shards the train state ZeRO-3 over the ranks
+(``parallel/fsdp.py``, :func:`_place_state`); its steps and valid passes
+run eagerly. ``pipeline_stages`` and ``tensor_parallel`` are not ported
+yet and are refused in training.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
@@ -86,6 +105,7 @@ from .data.device_bank import INDEX_KEYS, maybe_device_bank
 from .data.pipeline import BatchLoader, SentenceGroundingDataset
 from .eval.iou import retrieval_eval
 from .models.build import build_model
+from .parallel.mesh import DataMesh, create_mesh, replicate_state
 from .train.multiseed import (init_multiseed_states,
                               make_multiseed_train_step,
                               make_multiseed_valid_step, n_seeds_of, seed_of,
@@ -95,7 +115,7 @@ from .train.steps import (HOST_PAIR_KEYS, STEP_KEYS, TRAIN_KEYS,
                           make_baseline_eval_step, make_baseline_train_step,
                           make_gmd_test_step, make_gmd_train_step,
                           make_gmd_valid_step, to_device)
-from .utils.device import exact_bf16_products, resolve_device
+from .utils.device import exact_bf16_products
 from .utils.interop import load_reference_ckp
 from .utils.saver import RunManager, latest_checkpoint, load_checkpoint
 
@@ -149,11 +169,22 @@ def parse_params(argv=None, default_model: str = 'QAVE_match') -> Dict[str, Any]
     return params
 
 
-def setup_logger(alias: str) -> logging.Logger:
+def setup_logger(alias: str, rank: int = 0) -> logging.Logger:
+    """The run's logger; on a rank other than 0 only warnings and errors
+    show (log lines come from rank 0)."""
     logging.basicConfig()
     logger = logging.getLogger(alias)
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if rank == 0 else logging.WARNING)
     return logger
+
+
+def _submit_key(base: str, mesh: Optional[DataMesh]) -> str:
+    """A submit's key: ``<base>.part{rank}`` on a mesh of more than one
+    rank, each rank's stripe of predictions (JAX ``cli.py:203-208``;
+    ``python -m shufflingvideosfortsg_torch.merge_submits`` joins them)."""
+    if mesh is not None and mesh.world > 1:
+        return f'{base}.part{mesh.rank}'
+    return base
 
 
 def _dataset_kind(name: str) -> str:
@@ -286,25 +317,29 @@ def _multiseed_step(steps):
 
 def _multiseed_setup(params: Dict[str, Any], kind: str,
                      device: torch.device, lg: bool, banks,
-                     steps_per_epoch: int, logger):
+                     steps_per_epoch: int, logger,
+                     mesh: Optional[DataMesh] = None):
     """The run's seeds (JAX ``cli.py:310``): a :class:`MultiSeedState` of
     S seeds with ``multi_seed`` S > 1, of the one seed otherwise, seed i's
     model built by :func:`_seeded_model` (..., i), so seed 0 is the
     single-seed model; and each seed's train and valid step
     (:func:`_seed_steps`), the train step carrying as ``generator`` the
     seed's train generator, seeded with ``seed_of(seed, i)`` (the run's
-    ``seed`` for seed 0). Returns (the state, the train steps, the valid
-    steps, S), S == 0 when off."""
+    ``seed`` for seed 0). On a ``mesh`` with a process group each seed's
+    state and valid step take it. Returns (the state, the train steps, the
+    valid steps, S), S == 0 when off."""
     S = _multiseed_validate(params)
     n_seeds = S if S > 1 else 0
     stacked = init_multiseed_states(
         lambda i: _seeded_model(params, device, kind, i),
         range(max(n_seeds, 1)), params, steps_per_epoch)
+    axis = mesh if mesh is not None and mesh.distributed else None
     train_steps, valid_steps = [], []
     for i in range(n_seeds_of(stacked)):
         state = unstack_state(stacked, i)
+        state.mesh = axis
         train_step, valid_step = _seed_steps(params, kind, state.model,
-                                             state, lg, *banks)
+                                             state, lg, *banks, mesh=axis)
         train_step.generator = torch.Generator(device).manual_seed(
             seed_of(params.get('seed', 123), i))
         train_steps.append(train_step)
@@ -319,7 +354,6 @@ def _refuse_unported_training(params: Dict[str, Any]) -> None:
     refused = {
         'pipeline_stages': int(params.get('pipeline_stages', 0) or 0) > 0,
         'tensor_parallel': int(params.get('tensor_parallel', 0) or 0) > 1,
-        'fsdp': bool(params.get('fsdp')),
     }
     named = [k for k, on in refused.items() if on]
     if named:
@@ -348,7 +382,9 @@ def _check_finite(loss: float, saver: RunManager, model, state, generators,
                   logger, epoch: int, idx: int) -> None:
     """The watchdog (JAX ``cli.py:277-290``): on a non-finite loss write
     the emergency checkpoint ``<alias>_99999.ckp`` and its sidecar
-    synchronously, log its path and raise ``FloatingPointError``."""
+    synchronously, log its path and raise ``FloatingPointError``. On a
+    mesh every rank sees the same, all-reduced loss and calls this; rank
+    0 writes."""
     if math.isfinite(loss):
         return
     path = saver.save_checkpoint(saver.model_path(99999), model, state,
@@ -572,24 +608,33 @@ def _banked_eval_epoch(step, host_batches, bank, device: torch.device,
 def _eval_epoch(step, loader, bank, device: torch.device,
                 keys=STEP_KEYS, generator: Optional[torch.Generator] = None,
                 timer: Optional['_PhaseTimer'] = None, group: int = 1,
-                _graphed: bool = True):
+                _graphed: bool = True, mesh: Optional[DataMesh] = None):
     """One eval pass over ``loader``: (host batches, {key: [n_batches,
     ...]} on the host). With a bank and a step that has a grouped pass,
     :func:`_banked_eval_epoch`; otherwise batch by batch (assembled on the
     device where there is a bank), fetched once. ``generator`` feeds a
     valid step's pseudo-video draws. ``_graphed=False`` runs the banked
-    epoch's ticks without a graph (for comparisons)."""
+    epoch's ticks without a graph (for comparisons). On a ``mesh`` of
+    more than one rank the banked ticks are one batch each (JAX
+    ``cli.py:423-424``), the outputs the rank's own rows, and the
+    per-batch metrics ([n_batches] arrays) are meaned over the ranks."""
+    if mesh is not None and mesh.world > 1:
+        group = 1
     if bank is not None and hasattr(step, 'grouped'):
         host_batches = list(loader)
-        return host_batches, _banked_eval_epoch(
-            step, host_batches, bank, device, timer, group, _graphed,
-            generator)
-    host_batches, outs = [], []
-    for batch in loader:
-        host_batches.append(batch)
-        b = _device_batch(batch, device, keys, bank)
-        outs.append(step(b) if generator is None else step(b, generator))
-    return host_batches, _fetch(outs)
+        fetched = _banked_eval_epoch(step, host_batches, bank, device, timer,
+                                     group, _graphed, generator)
+    else:
+        host_batches, outs = [], []
+        for batch in loader:
+            host_batches.append(batch)
+            b = _device_batch(batch, device, keys, bank)
+            outs.append(step(b) if generator is None else step(b, generator))
+        fetched = _fetch(outs)
+    if mesh is not None:
+        fetched.update(mesh.mean_host(
+            {k: v for k, v in fetched.items() if v.ndim == 1}))
+    return host_batches, fetched
 
 
 def _banked_train_chunks_factory(train_step, bank, device: torch.device,
@@ -660,16 +705,36 @@ def main_train_baseline(params: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _seed_steps(params: Dict[str, Any], kind: str, model, state, lg: bool,
-                train_bank, valid_bank):
+                train_bank, valid_bank, mesh: Optional[DataMesh] = None):
     """(train step, valid step) of ``kind`` over one seed's model."""
     if kind == 'gmd':
         return (make_gmd_train_step(model, state, params, lg,
                                     _assembler(train_bank)),
                 make_gmd_valid_step(model, params, lg,
-                                    _assembler(valid_bank)))
+                                    _assembler(valid_bank), mesh=mesh))
     return (make_baseline_train_step(model, state, params, lg,
                                      _assembler(train_bank)),
             make_baseline_eval_step(model, lg, _assembler(valid_bank)))
+
+
+def _place_state(state: TrainState, mesh: DataMesh, params: Dict[str, Any],
+                 logger) -> None:
+    """The train state's placement (JAX ``cli.py:245-262``): rank 0's
+    state broadcast to every rank (JAX's ``replicate_tree``), and with
+    ``fsdp`` on a mesh with a process group the ZeRO-3 sharding of
+    ``parallel/fsdp.py`` (``fsdp_min_bytes``), whose resident bytes a
+    rank it logs."""
+    if not mesh.distributed:
+        return
+    replicate_state(mesh, state)
+    if params.get('fsdp'):
+        from .parallel.fsdp import (FSDP_MIN_BYTES, ShardedState,
+                                    resident_state_bytes)
+        state.sharded = ShardedState(
+            state, mesh, int(params.get('fsdp_min_bytes', FSDP_MIN_BYTES)))
+        logger.info('fsdp: train state ZeRO-3-sharded over %d ranks (%.1f '
+                    'MiB resident a rank); steps and valid passes run '
+                    'eagerly', mesh.world, resident_state_bytes(state) / 2**20)
 
 
 def _chunks(loader, size: int):
@@ -703,15 +768,21 @@ def _train(params: Dict[str, Any], kind: str, keys, terms,
     seed, each seed's valid pass drawing what seed 0's does
     (``make_multiseed_valid_step``)."""
     _multiseed_validate(params)
-    device = resolve_device(params.get('device', 'cuda'))
     _refuse_unported_training(params)
+    mesh = create_mesh(params.get('mesh_shape'), params.get('device', 'cuda'))
+    device = mesh.device
     if device.type == 'cuda':
         exact_bf16_products()
-    logger = setup_logger(params['alias'])
+        if graphed and mesh.distributed and mesh.backend != 'nccl':
+            raise ValueError(f'a {mesh.backend} process group on {device}: '
+                             'its collectives cannot be captured in a CUDA '
+                             'graph; use NCCL or run with _graphed=False')
+    logger = setup_logger(params['alias'], mesh.rank)
     allow_existing, start_epoch = _resolve_auto_resume(params)
-    saver = RunManager(params, allow_existing=allow_existing)
+    saver = RunManager(params, allow_existing=allow_existing, mesh=mesh)
     lg = str(params['vfeat_fn']).lower() == 'lg'
     seed = params.get('seed', 123)
+    stripe = dict(process_index=mesh.rank, process_count=mesh.world)
 
     train_set = make_dataset(params, 'train_data', 'train_featpath', 'train')
     valid_set = make_dataset(params, 'val_data', 'valid_featpath', 'valid')
@@ -721,13 +792,15 @@ def _train(params: Dict[str, Any], kind: str, keys, terms,
     train_loader = BatchLoader(train_set, params['batch_size'][0],
                                shuffle=True, seed=seed,
                                host_pair_aug=host_pair,
-                               device_assemble=train_bank is not None)
+                               device_assemble=train_bank is not None,
+                               **stripe)
     valid_loader = BatchLoader(valid_set, params['batch_size'][2],
                                shuffle=False,
-                               device_assemble=valid_bank is not None)
+                               device_assemble=valid_bank is not None,
+                               **stripe)
     stacked, train_steps, valid_steps, n_seeds = _multiseed_setup(
         params, kind, device, lg, (train_bank, valid_bank),
-        len(train_loader), logger)
+        len(train_loader), logger, mesh)
     valid_gen = None
     if kind == 'gmd':
         # validation draws its pseudo videos from a stream of its own
@@ -755,6 +828,9 @@ def _train(params: Dict[str, Any], kind: str, keys, terms,
         logger.warning('resume from checkpoint: %s (reference-format=%s, '
                        'step=%s)', params['start_from'], weights_only,
                        state.step)
+    for i in range(n_seeds_of(stacked)):
+        _place_state(unstack_state(stacked, i), mesh, params, logger)
+    graphed = graphed and unstack_state(stacked, 0).sharded is None
     train_step = (_multiseed_step(train_steps) if n_seeds
                   else train_steps[0])
     train_gens = tuple(step.generator for step in train_steps)
@@ -770,15 +846,20 @@ def _train(params: Dict[str, Any], kind: str, keys, terms,
     n_batches = len(train_loader)
 
     def validate(i, epoch, generator=None):
-        """Seed ``i``'s valid pass: its mIoU."""
+        """Seed ``i``'s valid pass: its mIoU (under FSDP on the gathered
+        weights)."""
         suffix = f'.s{i}' if n_seeds else ''
-        if kind == 'gmd':
-            return run_valid(valid_steps[i], valid_loader, params, logger,
-                             epoch, saver, device, generator, valid_bank,
-                             graphed, suffix)
-        return run_eval_collect(valid_steps[i], valid_loader, params,
-                                logger, epoch, saver, device,
-                                'val_data' + suffix, valid_bank)
+        sharded = unstack_state(stacked, i).sharded
+        with (sharded.gathered() if sharded is not None
+              else contextlib.nullcontext()):
+            if kind == 'gmd':
+                return run_valid(valid_steps[i], valid_loader, params,
+                                 logger, epoch, saver, device, generator,
+                                 valid_bank, graphed, suffix, mesh)
+            return run_eval_collect(valid_steps[i], valid_loader, params,
+                                    logger, epoch, saver, device,
+                                    'val_data', valid_bank, graphed, suffix,
+                                    mesh)
     valid_passes = make_multiseed_valid_step(
         [functools.partial(validate, i) for i in range(len(valid_steps))])
 
@@ -865,17 +946,20 @@ def _train(params: Dict[str, Any], kind: str, keys, terms,
                     path, state.model, state, generators(i)))
     saver.wait()  # the async writer's last checkpoint is on disk
     _stop_trace(trace, params['alias'], device)
-    _print_statistics(statistics)
+    if mesh.is_rank0:
+        _print_statistics(statistics)
     return statistics
 
 
 def run_valid(valid_step, loader, params, logger, epoch: int,
               saver: Optional[RunManager], device: torch.device,
               generator: torch.Generator, bank=None,
-              graphed: bool = True, submit_suffix: str = '') -> float:
+              graphed: bool = True, submit_suffix: str = '',
+              mesh: Optional[DataMesh] = None) -> float:
     """One valid pass: losses, the submit JSON (its split name followed by
-    ``submit_suffix``, a multi-seed run's ``.s{i}``), the mean IoU it
-    returns. The pseudo videos come from ``generator``, batch after
+    ``submit_suffix``, a multi-seed run's ``.s{i}``; on a ``mesh`` of
+    more than one rank the rank's ``.part{rank}`` before it), the mean IoU
+    it returns. The pseudo videos come from ``generator``, batch after
     batch; on a ``bank`` the pass is the banked epoch of
     :func:`_eval_epoch` in ticks of ``eval_scan_group`` batches
     (``graphed`` on a card)."""
@@ -883,12 +967,14 @@ def run_valid(valid_step, loader, params, logger, epoch: int,
     t0 = time.time()
     host_batches, fetched = _eval_epoch(
         valid_step, loader, bank, device, TRAIN_KEYS, generator,
-        group=int(params.get('eval_scan_group', 8)), _graphed=graphed)
+        group=int(params.get('eval_scan_group', 8)), _graphed=graphed,
+        mesh=mesh)
     for i, batch in enumerate(host_batches):
         _collect_predictions(pred_dict, batch, fetched['pred_time'][i],
                              fetched['score'][i])
     if saver is not None:
-        saver.save_submits(pred_dict, epoch, 'val_data' + submit_suffix)
+        saver.save_submits(pred_dict, epoch,
+                           _submit_key('val_data', mesh) + submit_suffix)
     miou = _avg(fetched, 'miou')
     logger.info('epoch [%03d]: elapsed time:%0.4fs, avg loss: %03.3f, '
                 'miou: %03.3f avg loss_g: %03.3f, avg loss_m1: %03.3f, '
@@ -900,21 +986,26 @@ def run_valid(valid_step, loader, params, logger, epoch: int,
 
 def run_eval_collect(eval_step, loader, params, logger, epoch: int,
                      saver: Optional[RunManager], device: torch.device,
-                     submit_key: str, bank=None) -> float:
+                     submit_key: str, bank=None, graphed: bool = True,
+                     submit_suffix: str = '',
+                     mesh: Optional[DataMesh] = None) -> float:
     """The baseline's valid pass: the submit JSON under ``submit_key``'s
-    split (``'<key>.<suffix>'`` adds ``.<suffix>`` to the file's split
-    name) and the mean IoU it returns; on a ``bank``, the banked epoch of
-    :func:`_eval_epoch`."""
+    split, followed by ``submit_suffix`` (a multi-seed run's ``.s{i}``;
+    on a ``mesh`` of more than one rank the rank's ``.part{rank}`` before
+    it), and the mean IoU it returns; on a ``bank``, the banked epoch of
+    :func:`_eval_epoch` (``graphed`` on a card)."""
     pred_dict = _new_pred_dict(params)
     t0 = time.time()
     host_batches, fetched = _eval_epoch(
         eval_step, loader, bank, device,
-        group=int(params.get('eval_scan_group', 8)))
+        group=int(params.get('eval_scan_group', 8)), _graphed=graphed,
+        mesh=mesh)
     for i, batch in enumerate(host_batches):
         _collect_predictions(pred_dict, batch, fetched['pred_time'][i],
                              fetched['score'][i])
     if saver is not None:
-        saver.save_submits(pred_dict, epoch, submit_key)
+        saver.save_submits(pred_dict, epoch,
+                           _submit_key(submit_key, mesh) + submit_suffix)
     miou = _avg(fetched, 'miou')
     logger.info('epoch [%03d]: elapsed time:%0.4fs, avg loss: %03.3f, '
                 'miou: %03.3f', epoch, time.time() - t0,
@@ -952,12 +1043,16 @@ def _assembler(bank):
 
 def _test(params: Dict[str, Any], kind: str, make_step,
           _graphed: bool = True) -> str:
-    device = resolve_device(params.get('device', 'cuda'))
+    """The test drivers' body. On a mesh of more than one rank each rank
+    evaluates its stripe and writes its ``.part{rank}`` submit with the
+    table of its rows, as JAX's (``cli.py:1041-1113``)."""
+    mesh = create_mesh(params.get('mesh_shape'), params.get('device', 'cuda'))
+    device = mesh.device
     if device.type == 'cuda':
         exact_bf16_products()
     pt = _PhaseTimer()
-    logger = setup_logger(params['alias'])
-    saver = RunManager(params)
+    logger = setup_logger(params['alias'], mesh.rank)
+    saver = RunManager(params, mesh=mesh)
     lg = str(params['vfeat_fn']).lower() == 'lg'
 
     model = _seeded_model(params, torch.device('cpu'), kind)
@@ -967,7 +1062,9 @@ def _test(params: Dict[str, Any], kind: str, make_step,
     test_bank = maybe_device_bank(params, test_set, device, logger)
     test_loader = BatchLoader(test_set, params['batch_size'][0],
                               shuffle=False,
-                              device_assemble=test_bank is not None)
+                              device_assemble=test_bank is not None,
+                              process_index=mesh.rank,
+                              process_count=mesh.world)
     pt.mark('bank')
     if params.get('start_from'):
         model.load_state_dict(load_reference_ckp(params['start_from']))
@@ -982,7 +1079,8 @@ def _test(params: Dict[str, Any], kind: str, make_step,
     t0 = time.time()
     host_batches, fetched = _eval_epoch(
         test_step, test_loader, test_bank, device, timer=pt,
-        group=int(params.get('eval_scan_group', 8)), _graphed=_graphed)
+        group=int(params.get('eval_scan_group', 8)), _graphed=_graphed,
+        mesh=mesh)
     pt.mark('eval_loop')
     losses = [float(x) for x in fetched['loss']]
     mious = [float(x) for x in fetched['miou']]
@@ -994,7 +1092,7 @@ def _test(params: Dict[str, Any], kind: str, make_step,
             pred_dict, batch, fetched['pred_time'][i], fetched['score'][i],
             pred_topk=fetched['pred_time_topk'][i] if topk > 1 else None,
             score_topk=fetched['score_topk'][i] if topk > 1 else None)
-    submit = saver.save_submits(pred_dict, 0, 'test_data')
+    submit = saver.save_submits(pred_dict, 0, _submit_key('test_data', mesh))
     # the reference's "elapsed time": eval loop + decode + collect +
     # submit write; not the model build, checkpoint load or scoring
     loop_s = time.time() - t0

@@ -22,6 +22,10 @@ The upload goes chunk by chunk (64 MiB) through one pinned staging buffer
 straight into one preallocated tensor: the device holds the bank and
 nothing beside it, and the host at most one chunk, never a converted copy
 of the whole pack.
+
+On the data axis (JAX ``data/device_bank.py:84-88, 115-125``) every rank
+uploads the whole bank to its own card, replicated as JAX places it
+across processes; each rank's stripe of the split indexes it.
 """
 
 from __future__ import annotations

@@ -27,7 +27,7 @@ import os
 import queue
 import threading
 from functools import lru_cache
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -268,14 +268,21 @@ class BatchLoader:
     gives the true count. With ``device_assemble`` (a packed source and no
     host pair aug) a batch is index-only: the keys of
     ``data/device_bank.ASSEMBLED_KEYS`` are dropped, to be rebuilt on the
-    device by ``device_bank.assemble``. Multi-host striping (the JAX
-    package's ``process_index``/``process_count``) arrives with the
-    parallel slice.
+    device by ``device_bank.assemble``.
+
+    On the data axis (JAX ``data/pipeline.py:271, 296-319``) rank
+    ``process_index`` of ``process_count`` loads the stripe
+    ``order[process_index::process_count]`` of the identically seeded
+    global shuffle, ``batch_size`` rows a batch; a shorter stripe is
+    padded with its own first samples to the longest one's length (rows
+    that ``n_valid`` leaves out), so every rank runs the same number of
+    batches and steps.
     """
 
     def __init__(self, dataset: SentenceGroundingDataset, batch_size: int,
                  shuffle: bool, seed: int = 0, host_pair_aug: bool = False,
-                 prefetch: int = 2, device_assemble: bool = False):
+                 prefetch: int = 2, device_assemble: bool = False,
+                 process_index: int = 0, process_count: int = 1):
         if device_assemble and (dataset.pack is None or host_pair_aug):
             raise ValueError('device_assemble needs a packed feature source '
                              'and no host pair aug')
@@ -287,18 +294,33 @@ class BatchLoader:
         self.prefetch = prefetch
         self.device_assemble = device_assemble
         self.epoch = 0
+        self.process_index = process_index
+        self.process_count = process_count
+
+    def _per_process(self) -> int:
+        return -(-len(self.dataset) // self.process_count)
 
     def __len__(self):
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        return (self._per_process() + self.batch_size - 1) // self.batch_size
 
-    def _order(self) -> np.ndarray:
+    def _order(self) -> Tuple[np.ndarray, int]:
+        """(this process's sample order, its real rows before the
+        stripe's padding)."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
-        return idx
+        if self.process_count == 1:
+            return idx, len(idx)
+        idx = idx[self.process_index::self.process_count]
+        real, per = len(idx), self._per_process()
+        if real == 0:
+            raise ValueError(f'{self.process_count} processes for '
+                             f'{len(self.dataset)} samples')
+        if real < per:
+            idx = np.concatenate([idx, idx[np.arange(per - real) % real]])
+        return idx, real
 
-    def _make_batch(self, chunk: np.ndarray) -> Dict[str, Any]:
-        n_valid = len(chunk)
+    def _make_batch(self, chunk: np.ndarray, n_valid: int) -> Dict[str, Any]:
         if len(chunk) < self.batch_size:
             pad = np.arange(self.batch_size - len(chunk)) \
                 % max(len(self.dataset), 1)
@@ -328,10 +350,11 @@ class BatchLoader:
         return batch
 
     def _iter_sync(self) -> Iterator[Dict[str, Any]]:
-        order = self._order()
+        order, real = self._order()
         self.epoch += 1  # each new iteration is a new epoch order
         for i in range(0, len(order), self.batch_size):
-            yield self._make_batch(order[i:i + self.batch_size])
+            chunk = order[i:i + self.batch_size]
+            yield self._make_batch(chunk, min(len(chunk), max(0, real - i)))
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         if self.prefetch <= 0:

@@ -8,6 +8,8 @@ exp of ``masked_softmax``, the span-aligned KL).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 DELTA = 1e-4
@@ -47,15 +49,19 @@ def span_ground_loss(start_prob: torch.Tensor, end_prob: torch.Tensor,
 
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor,
-             mask: torch.Tensor) -> torch.Tensor:
+             mask: torch.Tensor, mask_sum: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
     """Masked binary cross-entropy with logits, summed over the mask and
     divided by (mask sum + 1e-4) (loss.py:30-36), in the stable
-    max(x, 0) - x*z + log1p(exp(-|x|)) form."""
+    max(x, 0) - x*z + log1p(exp(-|x|)) form. ``mask_sum``, where given,
+    replaces the mask's own sum (a data-parallel step's: the global
+    batch's)."""
     x = logits.float()
     z = labels.float()
     per_loc = x.clamp(min=0.0) - x * z + torch.log1p(torch.exp(-x.abs()))
     m = mask.float()
-    return (per_loc * m).sum() / (m.sum() + DELTA)
+    total = m.sum() if mask_sum is None else mask_sum
+    return (per_loc * m).sum() / (total + DELTA)
 
 
 def matching_kl_divergence(prob1: torch.Tensor, prob2: torch.Tensor,

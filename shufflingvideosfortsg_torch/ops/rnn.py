@@ -35,6 +35,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import uniform
 from .dense import dense
 from .lstm_scan import lstm_recurrence, sigmoid_bf16
 
@@ -51,13 +52,14 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     The uniform draws are f32 whatever x's dtype, as JAX's bernoulli
     draws them; in bf16 x is divided by the keep rate rounded to bf16, as
     flax divides a bf16 array by the Python float. ``u``, where given,
-    holds those uniform draws, made earlier (:meth:`BiLSTM.dropout_draws`)."""
+    holds those uniform draws, made earlier (:meth:`BiLSTM.dropout_draws`).
+    In a data-parallel step the draw is the global batch's, of which the
+    rank keeps its rows (``parallel/mesh.uniform``)."""
     if not training or p <= 0.0:
         return x
     keep = 1.0 - p
     if u is None:
-        u = torch.rand(x.shape, generator=generator, device=x.device,
-                       dtype=torch.float32)
+        u = uniform(x.shape, generator, x.device)
     scale = keep if x.dtype == torch.float32 else \
         float(torch.tensor(keep, dtype=x.dtype))
     return torch.where(u < keep, x / scale, torch.zeros_like(x))
@@ -120,8 +122,7 @@ class BiLSTM(nn.Module):
         where it draws none."""
         if not self.training or self.dropout <= 0.0:
             return None
-        return [torch.rand((B, T, 2 * self.hidden_size), generator=generator,
-                           device=device, dtype=torch.float32)
+        return [uniform((B, T, 2 * self.hidden_size), generator, device)
                 for _ in range(self.num_layers - 1)]
 
     def forward(self, x: torch.Tensor,

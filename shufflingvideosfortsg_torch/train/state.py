@@ -29,6 +29,7 @@ reference builds them.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, List
 
 import torch
@@ -157,7 +158,13 @@ class TrainState:
     model and change in place). On a card a CUDA graph can capture
     :meth:`update`. :meth:`state_dict` and :meth:`load_state_dict` carry
     the count and the optimizer's state through a checkpoint's sidecar
-    (``utils/saver.py``)."""
+    (``utils/saver.py``).
+
+    On the data axis (``parallel/``) ``mesh`` is the run's
+    ``DataMesh`` with a process group, and :meth:`update` means the
+    gradients over the ranks first; ``sharded``, a ``ShardedState``
+    under FSDP, then takes the update, and :meth:`weights` and
+    :meth:`state_dict` gather the full state."""
 
     def __init__(self, model: nn.Module, params: Dict[str, Any],
                  steps_per_epoch: int):
@@ -167,6 +174,20 @@ class TrainState:
         self.schedule = lr_schedule_fn(params, steps_per_epoch)
         self.clip = (float(params['grad_clip_max'])
                      if params.get('grad_clip') else None)
+        self.mesh = None
+        self.sharded = None
+
+    @contextlib.contextmanager
+    def forward_context(self):
+        """What a train step's forward and backward run in: on a mesh,
+        this rank's rows of the global batch's draws, and under FSDP the
+        gathered parameters."""
+        with contextlib.ExitStack() as stack:
+            if self.mesh is not None:
+                stack.enter_context(self.mesh.rows())
+            if self.sharded is not None:
+                stack.enter_context(self.sharded.gathered())
+            yield
 
     def set_lr(self) -> None:
         """The schedule's rate for update ``step``, written into the
@@ -182,7 +203,13 @@ class TrainState:
     def update(self) -> None:
         """Clip the gradients now in the parameters' ``.grad`` and take
         the optimizer's step at the rate set last; no host state changes,
-        so on a card a CUDA graph can capture it."""
+        so on a card a CUDA graph can capture it. On a mesh the gradients
+        are meaned over the ranks first."""
+        if self.sharded is not None:
+            self.sharded.update()
+            return
+        if self.mesh is not None:
+            self.mesh.sync_grads(self.model.parameters())
         if self.clip is not None:
             clip_by_global_norm(self.model.parameters(), self.clip)
         self.optimizer.step()
@@ -195,8 +222,18 @@ class TrainState:
 
     def state_dict(self) -> Dict[str, Any]:
         """The update count and the optimizer's ``state_dict`` (its
-        tensors the live ones: copy them before the next update)."""
+        tensors the live ones: copy them before the next update; under
+        FSDP gathered, a collective)."""
+        if self.sharded is not None:
+            return self.sharded.state_dict()
         return {'step': self.step, 'optimizer': self.optimizer.state_dict()}
+
+    def weights(self) -> Dict[str, torch.Tensor]:
+        """The model's ``state_dict`` (under FSDP gathered, a
+        collective)."""
+        if self.sharded is not None:
+            return self.sharded.weights()
+        return self.model.state_dict()
 
     @torch.no_grad()
     def load_state_dict(self, sd: Dict[str, Any]) -> None:

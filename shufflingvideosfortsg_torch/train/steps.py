@@ -30,16 +30,26 @@ Random numbers come from the ``torch.Generator`` a step is given, in a
 fixed order: the pseudo videos' insertion offsets, then the dropout masks.
 No step synchronises with the host, reads a host tensor or branches on a
 value on the device.
+
+On the data axis (a train state's ``mesh`` with a process group, JAX's
+step on the ``data`` mesh, ``train/steps.py:120-139, 213-214``) a step
+runs on the rank's rows: the draws are the global batch's, each rank
+keeping its rows; the intra BCE divides by the global mask sums; the
+gradient is meaned over the ranks after the local backward (after every
+microbatch) and before the clip and the optimizer
+(``TrainState.update``); the metrics come back as the global batch's.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Sequence
 
 import numpy as np
 import torch
 
 from ..data.device_bank import BANK_KEYS
+from ..parallel.mesh import uniform
 from ..ops.augment_device import gt_translate_batch
 from ..ops.losses import (bce_loss, masked_softmax, matching_kl_divergence,
                           span_ground_loss, span_ground_nll,
@@ -128,10 +138,12 @@ def _device_pseudo(batch: Batch, generator: torch.Generator,
                    groups: int = 1) -> Batch:
     """The pseudo stream made on the device from one uniform draw a row,
     drawn as ``groups`` calls in row order: the draws of as many batches
-    of ``rows / groups`` made one after another."""
+    of ``rows / groups`` made one after another (in a data-parallel step,
+    the global batch's draws, of which the rank keeps its rows:
+    ``parallel/mesh.uniform``)."""
     video = batch['video_feat']
-    draws = [torch.rand(video.shape[0] // groups, generator=generator,
-                        device=video.device) for _ in range(groups)]
+    draws = [uniform((video.shape[0] // groups,), generator, video.device)
+             for _ in range(groups)]
     u = draws[0] if groups == 1 else torch.cat(draws)
     feat, framestps, masks = gt_translate_batch(u, video, batch['framestps'],
                                                 batch['nfeats'])
@@ -148,15 +160,26 @@ def _pair_forward(model, batch: Batch, pseudo: Batch, generator):
                  generator=generator)
 
 
-def _match_losses(out, batch: Batch, pseudo: Batch, m1: float, m2: float):
-    """(grounding NLL, m1 * intra BCE, m2 * inter KL), batch means."""
+def _match_losses(out, batch: Batch, pseudo: Batch, m1: float, m2: float,
+                  mesh=None):
+    """(grounding NLL, m1 * intra BCE, m2 * inter KL), batch means. On a
+    ``mesh`` with a process group the intra BCE divides by the global
+    batch's mask sums (one all-reduce) and is scaled by the world size,
+    so the ranks' mean is the global batch's loss, as JAX's mesh step
+    computes it; the other terms are batch means already."""
     loss_g = span_ground_loss(out['start_prob'], out['end_prob'],
                               batch['framestps'])
-    loss_intra = m1 * (
-        bce_loss(out['ori_match_prob'], batch['temporal_labels'],
-                 batch['video_mask'])
-        + bce_loss(out['pseudo_match_prob'], pseudo['temporal_labels'],
-                   pseudo['video_mask']))
+    masks = (batch['video_mask'], pseudo['video_mask'])
+    sums, scale = (None, None), 1
+    if mesh is not None and mesh.distributed:
+        sums = mesh.all_sum_(torch.stack([m.float().sum()
+                                          for m in masks])).unbind()
+        scale = mesh.world
+    bce = (bce_loss(out['ori_match_prob'], batch['temporal_labels'],
+                    masks[0], sums[0])
+           + bce_loss(out['pseudo_match_prob'], pseudo['temporal_labels'],
+                      masks[1], sums[1]))
+    loss_intra = m1 * (bce if scale == 1 else scale * bce)
     ori_sm = masked_softmax(out['ori_match_prob'], batch['temporal_labels'])
     pse_sm = masked_softmax(out['pseudo_match_prob'],
                             pseudo['temporal_labels'])
@@ -216,6 +239,12 @@ def _backward(loss_fn, params, batch: Batch, pseudo: Batch, generator,
             for k, v in auxs[0].items()}
 
 
+def _global_means(metrics: Batch, mesh) -> Batch:
+    """A step's metrics, meaned over a mesh's ranks where it has a process
+    group (the global batch's values on every rank)."""
+    return metrics if mesh is None else mesh.mean_metrics(metrics)
+
+
 def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
                         lg_frame2sec: bool = False, assembler=None
                         ) -> Callable[[Batch, torch.Generator], Batch]:
@@ -238,7 +267,7 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
     def loss_fn(batch: Batch, pseudo: Batch, generator):
         out = _pair_forward(model, batch, pseudo, generator)
         loss_g, loss_intra, loss_inter = _match_losses(out, batch, pseudo,
-                                                       m1, m2)
+                                                       m1, m2, state.mesh)
         loss_disc = temporal_order_discrimination_loss(
             out['ori_disc_prob'], out['pseudo_disc_prob'])
         loss = loss_g + loss_intra + loss_inter + md * loss_disc
@@ -256,18 +285,19 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
     def inner(batch: Batch, generator: torch.Generator) -> Batch:
         model.train()
         batch = assemble(batch)
-        if on_device_aug:
-            pseudo = _device_pseudo(batch, generator)
-        else:
-            pseudo = {k: batch['pseudo_' + k] for k in PSEUDO_KEYS}
-        aux = _backward(loss_fn, model.parameters(), batch, pseudo,
-                        generator, accum, _GMD_LOSS_KEYS)
+        with state.forward_context():
+            if on_device_aug:
+                pseudo = _device_pseudo(batch, generator)
+            else:
+                pseudo = {k: batch['pseudo_' + k] for k in PSEUDO_KEYS}
+            aux = _backward(loss_fn, model.parameters(), batch, pseudo,
+                            generator, accum, _GMD_LOSS_KEYS)
         state.update()
         metrics = {k: v.detach() for k, v in aux.items()}
         *_, metrics['miou'] = _stats(metrics.pop('start_prob'),
                                      metrics.pop('end_prob'), batch,
                                      lg_frame2sec)
-        return metrics
+        return _global_means(metrics, state.mesh)
 
     def train_step(batch: Batch, generator: torch.Generator) -> Batch:
         state.set_lr()
@@ -282,7 +312,8 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
 
 
 def make_gmd_valid_step(model, params: Dict[str, Any],
-                        lg_frame2sec: bool = False, assembler=None
+                        lg_frame2sec: bool = False, assembler=None,
+                        mesh=None
                         ) -> Callable[[Batch, torch.Generator], Batch]:
     """The reference's valid(): the pair forward without dropout on device-
     made pseudo videos, the losses less the discriminator term, and the
@@ -291,14 +322,18 @@ def make_gmd_valid_step(model, params: Dict[str, Any],
     batch's pseudo draws as the step batch by batch makes them (G draws of
     B in batch order), one [G*B] pair forward, each batch's losses over
     its own B rows, loss terms and miou [G] and the outputs [G, B, ...];
-    the counterpart of JAX's keyed valid tick (``cli.py:513-515``)."""
+    the counterpart of JAX's keyed valid tick (``cli.py:513-515``). On a
+    ``mesh`` with a process group the pseudo draws are the global batch's
+    and the intra BCE the global batch's share (:func:`_match_losses`);
+    the caller means the per-batch metrics over the ranks."""
     m1 = float(params['loss_m1_lambda'])
     m2 = float(params['loss_m2_lambda'])
     assemble = assembler or _identity
+    rows_of = mesh.rows if mesh is not None else contextlib.nullcontext
 
     def losses(out, batch, pseudo):
         loss_g, loss_intra, loss_inter = _match_losses(out, batch, pseudo,
-                                                       m1, m2)
+                                                       m1, m2, mesh)
         return {'loss': loss_g + loss_intra + loss_inter, 'loss_g': loss_g,
                 'loss_intra': loss_intra, 'loss_inter': loss_inter}
 
@@ -306,7 +341,8 @@ def make_gmd_valid_step(model, params: Dict[str, Any],
     def valid_step(batch: Batch, generator: torch.Generator) -> Batch:
         model.eval()
         batch = assemble(batch)
-        pseudo = _device_pseudo(batch, generator)
+        with rows_of():
+            pseudo = _device_pseudo(batch, generator)
         out = _pair_forward(model, batch, pseudo, None)
         pred_f, score, miou = _stats(out['start_prob'], out['end_prob'],
                                      batch, lg_frame2sec)
@@ -318,7 +354,8 @@ def make_gmd_valid_step(model, params: Dict[str, Any],
         model.eval()
         flat, G, B = _flatten_group(gbatch)
         batch = assemble(flat)
-        pseudo = _device_pseudo(batch, generator, groups=G)
+        with rows_of():
+            pseudo = _device_pseudo(batch, generator, groups=G)
         out = _pair_forward(model, batch, pseudo, None)
 
         def rows(d, g):
@@ -403,13 +440,15 @@ def make_baseline_train_step(model, state: TrainState,
     def train_step(batch: Batch, generator: torch.Generator) -> Batch:
         model.train()
         batch = assemble(batch)
-        aux = _backward(lambda b, _pseudo, g: loss_fn(b, g),
-                        model.parameters(), batch, {}, generator, accum,
-                        _BASELINE_LOSS_KEYS)
+        with state.forward_context():
+            aux = _backward(lambda b, _pseudo, g: loss_fn(b, g),
+                            model.parameters(), batch, {}, generator, accum,
+                            _BASELINE_LOSS_KEYS)
         state.apply_gradients()
         *_, miou = _stats(aux['start_prob'].detach(),
                           aux['end_prob'].detach(), batch, lg_frame2sec)
-        return {'loss': aux['loss'].detach(), 'miou': miou}
+        return _global_means({'loss': aux['loss'].detach(), 'miou': miou},
+                             state.mesh)
 
     train_step.loss_fn = loss_fn
     return train_step

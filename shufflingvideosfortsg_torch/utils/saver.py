@@ -22,6 +22,14 @@ or one of ``tools/export_reference_ckp.py``) loads as weights only. The
 JAX package's msgpack checkpoints are not read here: the port imports no
 flax; ``tools/export_reference_ckp.py`` turns one into a reference
 ``.ckp``.
+
+On the data axis (a ``RunManager`` given a ``DataMesh`` with a process
+group; JAX ``utils/saver.py:110``) rank 0 alone sets up the run
+directory and writes ``params.json``, ``metrics.jsonl`` and the
+checkpoints (the async writer runs on rank 0 only), the other ranks
+meeting it at a barrier; every rank writes its own submits, named
+``.part{rank}`` by the drivers. Under FSDP every rank takes part in the
+gather of a checkpoint's state before rank 0 writes it.
 """
 
 from __future__ import annotations
@@ -68,7 +76,8 @@ def snapshot(model: torch.nn.Module, state=None,
     def copy(t):
         return t.detach().clone()
 
-    out = {'weights': {k: copy(v) for k, v in model.state_dict().items()},
+    weights = model.state_dict() if state is None else state.weights()
+    out = {'weights': {k: copy(v) for k, v in weights.items()},
            'state': None}
     if state is not None:
         out['state'] = {
@@ -169,16 +178,30 @@ class AsyncCheckpointer:
 
 
 class RunManager:
-    def __init__(self, params: Dict[str, Any], allow_existing: bool = False):
+    def __init__(self, params: Dict[str, Any], allow_existing: bool = False,
+                 mesh=None):
         self.params = params
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.is_rank0
         self.root_folder = os.path.join(params['runs'], params['alias'])
         self.model_folder = os.path.join(self.root_folder, 'model')
         self.submits_folder = os.path.join(self.root_folder, 'submits')
         self._async = (AsyncCheckpointer()
-                       if params.get('async_checkpoint') else None)
-        self._init_dirs(allow_existing)
-        with open(os.path.join(self.root_folder, 'params.json'), 'w') as f:
-            json.dump(_jsonable(params), f)
+                       if params.get('async_checkpoint') and self.writes
+                       else None)
+        if self.writes:
+            self._init_dirs(allow_existing)
+            with open(os.path.join(self.root_folder, 'params.json'),
+                      'w') as f:
+                json.dump(_jsonable(params), f)
+        self._barrier()
+        if not self.writes:
+            os.makedirs(self.model_folder, exist_ok=True)
+            os.makedirs(self.submits_folder, exist_ok=True)
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def _init_dirs(self, allow_existing: bool = False):
         if os.path.exists(self.root_folder) and not allow_existing:
@@ -204,14 +227,20 @@ class RunManager:
         ``generators``' states; with ``async_checkpoint`` on and not
         ``sync``, schedule the write (:class:`AsyncCheckpointer`). The
         emergency checkpoint passes ``sync=True``: the run stops right
-        after. Returns the ``.ckp``'s path."""
+        after. Returns the ``.ckp``'s path. On a mesh every rank calls it:
+        rank 0 writes (under FSDP after the gather every rank joins), then
+        the ranks meet at a barrier."""
         path = (self.model_path(path_or_step)
                 if isinstance(path_or_step, int) else path_or_step)
-        if self._async is not None and not sync:
+        if not self.writes:
+            if state is not None and state.sharded is not None:
+                snapshot(model, state, generators)  # the gather's collectives
+        elif self._async is not None and not sync:
             self._async.save(path, model, state, generators)
         else:
             self.wait()  # keep the order of writes behind an async one
             write_snapshot(path, snapshot(model, state, generators))
+        self._barrier()
         return path
 
     def wait(self) -> None:
@@ -221,7 +250,9 @@ class RunManager:
             self._async.wait()
 
     def log_metrics(self, record: Dict[str, Any]) -> None:
-        """Append one JSON line to ``<run>/metrics.jsonl``."""
+        """Append one JSON line to ``<run>/metrics.jsonl`` (rank 0's)."""
+        if not self.writes:
+            return
         with open(os.path.join(self.root_folder, 'metrics.jsonl'), 'a') as f:
             f.write(json.dumps(_jsonable(record)) + '\n')
 

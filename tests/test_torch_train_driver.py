@@ -164,12 +164,18 @@ def test_trace_dir_writes_a_chrome_trace(corpus, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('flag', [
-    ['--pipeline_stages', '1'], ['--tensor_parallel', '2'], ['--fsdp']])
+    (['--pipeline_stages', '1'], NotImplementedError, 'not ported'),
+    (['--tensor_parallel', '2'], NotImplementedError, 'not ported'),
+    # fsdp is ported (parallel/fsdp.py); with --multi_seed it stays
+    # refused, with JAX's message
+    (['--fsdp', '--multi_seed', '2'], ValueError,
+     'does not compose with --fsdp')])
 def test_train_driver_refuses_what_is_not_ported(corpus, flag):
     root, argv, _ = corpus
+    flag, error, message = flag
     params = cli.parse_params(argv + ['--alias', 'refused', '--device', 'cpu',
                                       *flag], default_model='GMD')
-    with pytest.raises(NotImplementedError, match='not ported'):
+    with pytest.raises(error, match=message):
         cli.main_train(params)
     assert not os.path.exists(os.path.join(root, 'runs', 'refused'))
 
