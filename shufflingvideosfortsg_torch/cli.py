@@ -80,14 +80,28 @@ captures the NCCL all-reduces in its CUDA graph; gloo collectives cannot
 be captured, so a gloo group on a card needs ``_graphed=False``.
 ``fsdp`` shards the train state ZeRO-3 over the ranks
 (``parallel/fsdp.py``, :func:`_place_state`); its steps and valid passes
-run eagerly. ``pipeline_stages`` and ``tensor_parallel`` are not ported
-yet and are refused in training.
+run eagerly.
+
+The model and pipe axes of GMD training (JAX ``cli.py:698-834``):
+``tensor_parallel`` n runs on a ``(data, model)`` mesh of the ranks
+(``parallel/tensor_parallel.py``, ``train/tp.py``: every QAVE recurrence
+hidden-sharded n ways, the state replicated) and ``pipeline_stages`` k on
+a ``(data, pipe)`` mesh (``parallel/pipeline.py``,
+``train/pipelined.py``: QAVE k + 1 blocks deep, blocks 1..k one stage a
+pipe rank, ``pipeline_microbatches`` a step; checkpoints and the valid
+pass, which runs eagerly, in the sequential layout). The n or k ranks of
+a row take the same rows; the loader's stripes, the means and the
+``.part{d}`` submits follow the data index d. :func:`_pipeline_validate`
+and :func:`_tp_validate` refuse JAX's invalid combinations with its
+messages. On NCCL a graphed chunk captures the axis's collectives (the
+per-step all-gathers, the sends and receives) with the rest; gloo is
+refused for graphing, as on the data axis. The baseline trainer ignores
+both, as JAX's does.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import functools
 import gc
 import json
@@ -105,16 +119,21 @@ from .data.device_bank import INDEX_KEYS, maybe_device_bank
 from .data.pipeline import BatchLoader, SentenceGroundingDataset
 from .eval.iou import retrieval_eval
 from .models.build import build_model
-from .parallel.mesh import DataMesh, create_mesh, replicate_state
+from .parallel.mesh import DataMesh, create_mesh, replicate_state, world_size
+from .parallel.pipeline import PIPE_AXIS, create_pp_mesh
+from .parallel.tensor_parallel import MODEL_AXIS, create_tp_mesh
 from .train.multiseed import (init_multiseed_states,
                               make_multiseed_train_step,
                               make_multiseed_valid_step, n_seeds_of, seed_of,
                               unstack_state)
+from .train.pipelined import (make_gmd_pipelined_train_step,
+                              to_pipelined_state)
 from .train.state import TrainState
 from .train.steps import (HOST_PAIR_KEYS, STEP_KEYS, TRAIN_KEYS,
                           make_baseline_eval_step, make_baseline_train_step,
                           make_gmd_test_step, make_gmd_train_step,
                           make_gmd_valid_step, to_device)
+from .train.tp import make_gmd_tp_train_step
 from .utils.device import exact_bf16_products
 from .utils.interop import load_reference_ckp
 from .utils.saver import RunManager, latest_checkpoint, load_checkpoint
@@ -339,7 +358,8 @@ def _multiseed_setup(params: Dict[str, Any], kind: str,
         state = unstack_state(stacked, i)
         state.mesh = axis
         train_step, valid_step = _seed_steps(params, kind, state.model,
-                                             state, lg, *banks, mesh=axis)
+                                             state, lg, *banks, mesh=axis,
+                                             grid=mesh)
         train_step.generator = torch.Generator(device).manual_seed(
             seed_of(params.get('seed', 123), i))
         train_steps.append(train_step)
@@ -350,15 +370,73 @@ def _multiseed_setup(params: Dict[str, Any], kind: str,
     return stacked, train_steps, valid_steps, n_seeds
 
 
-def _refuse_unported_training(params: Dict[str, Any]) -> None:
-    refused = {
-        'pipeline_stages': int(params.get('pipeline_stages', 0) or 0) > 0,
-        'tensor_parallel': int(params.get('tensor_parallel', 0) or 0) > 1,
-    }
-    named = [k for k, on in refused.items() if on]
-    if named:
-        raise NotImplementedError(f'{", ".join(named)}: not ported to the '
-                                  'PyTorch trainer yet')
+def _pipeline_validate(params: Dict[str, Any]) -> int:
+    """Check ``--pipeline_stages`` combinations up front (JAX
+    ``cli.py:698-732``), before any run directory. Returns the stage count
+    (0 = off)."""
+    pp = int(params.get('pipeline_stages') or 0)
+    if pp <= 0:
+        return 0
+    if params.get('fsdp'):
+        raise ValueError('--pipeline_stages does not compose with --fsdp: '
+                         'stage weights already shard over the pipe axis')
+    if int(params.get('multi_seed', 0) or 0) > 1:
+        raise ValueError('--pipeline_stages does not compose with '
+                         '--multi_seed: the stacked seed axis and the '
+                         'stacked stage axis both claim leaf axis 0')
+    if int(params.get('tensor_parallel', 0) or 0) > 1:
+        raise ValueError('--pipeline_stages does not compose with '
+                         '--tensor_parallel: both claim the non-data mesh '
+                         'axis (depth-shard OR width-shard, not both)')
+    if params.get('remat'):
+        # the pipelined stage blocks run outside QAVE's checkpointed loop
+        logging.getLogger(__name__).warning(
+            '--remat is ignored with --pipeline_stages: the pipelined '
+            'stage blocks run outside the nn.remat wrapper (microbatch '
+            'activations are already one-microbatch-sized)')
+    n_dev = world_size()
+    if n_dev % pp:
+        raise ValueError(f'--pipeline_stages={pp} needs a device count '
+                         f'divisible by it (have {n_dev})')
+    return pp
+
+
+def _tp_validate(params: Dict[str, Any]) -> int:
+    """Check ``--tensor_parallel`` combinations up front (JAX
+    ``cli.py:735-755``). Returns the model-axis width (0 = off)."""
+    tp = int(params.get('tensor_parallel', 0) or 0)
+    if tp <= 1:
+        return 0
+    if params.get('fsdp'):
+        raise ValueError('--tensor_parallel does not compose with --fsdp: '
+                         'TP keeps the state replicated by design (its '
+                         'axis shards recurrence compute/activations); '
+                         'ZeRO-3 placement would fight that layout')
+    if int(params.get('multi_seed', 0) or 0) > 1:
+        raise ValueError('--tensor_parallel does not compose with '
+                         '--multi_seed: the vmapped seed axis cannot wrap '
+                         'the shard_map-ped recurrence')
+    n_dev = world_size()
+    if n_dev % tp:
+        raise ValueError(f'--tensor_parallel={tp} needs a device count '
+                         f'divisible by it (have {n_dev})')
+    H = int(params['video_rnn_hiddendim'])
+    if H % tp:
+        raise ValueError(f'--tensor_parallel={tp} must divide '
+                         f'video_rnn_hiddendim ({H})')
+    return tp
+
+
+def _train_mesh(params: Dict[str, Any], pp: int, tp: int) -> DataMesh:
+    """The training run's mesh (JAX ``cli.py:761-778``): ``(data, pipe)``
+    with ``pipeline_stages``, ``(data, model)`` with ``tensor_parallel``,
+    else the data axis alone."""
+    device = params.get('device', 'cuda')
+    if pp:
+        return create_pp_mesh(world_size() // pp, pp, device)
+    if tp:
+        return create_tp_mesh(world_size() // tp, tp, device)
+    return create_mesh(params.get('mesh_shape'), device)
 
 
 def _resolve_auto_resume(params: Dict[str, Any]):
@@ -705,13 +783,26 @@ def main_train_baseline(params: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def _seed_steps(params: Dict[str, Any], kind: str, model, state, lg: bool,
-                train_bank, valid_bank, mesh: Optional[DataMesh] = None):
-    """(train step, valid step) of ``kind`` over one seed's model."""
+                train_bank, valid_bank, mesh: Optional[DataMesh] = None,
+                grid: Optional[DataMesh] = None):
+    """(train step, valid step) of ``kind`` over one seed's model; GMD's
+    train step pipelined or tensor-parallel where ``grid``, the run's
+    mesh, has a pipe or a model axis (JAX ``cli.py:816-834``)."""
     if kind == 'gmd':
-        return (make_gmd_train_step(model, state, params, lg,
-                                    _assembler(train_bank)),
-                make_gmd_valid_step(model, params, lg,
-                                    _assembler(valid_bank), mesh=mesh))
+        inner = None if grid is None else grid.inner
+        if inner is not None and inner.name == PIPE_AXIS:
+            train = make_gmd_pipelined_train_step(
+                model, state, params, grid,
+                int(params.get('pipeline_microbatches', 4)), lg,
+                _assembler(train_bank))
+        elif inner is not None and inner.name == MODEL_AXIS:
+            train = make_gmd_tp_train_step(model, state, params, grid, lg,
+                                           _assembler(train_bank))
+        else:
+            train = make_gmd_train_step(model, state, params, lg,
+                                        _assembler(train_bank))
+        return (train, make_gmd_valid_step(model, params, lg,
+                                           _assembler(valid_bank), mesh=mesh))
     return (make_baseline_train_step(model, state, params, lg,
                                      _assembler(train_bank)),
             make_baseline_eval_step(model, lg, _assembler(valid_bank)))
@@ -723,7 +814,13 @@ def _place_state(state: TrainState, mesh: DataMesh, params: Dict[str, Any],
     state broadcast to every rank (JAX's ``replicate_tree``), and with
     ``fsdp`` on a mesh with a process group the ZeRO-3 sharding of
     ``parallel/fsdp.py`` (``fsdp_min_bytes``), whose resident bytes a
-    rank it logs."""
+    rank it logs; on a pipe axis each rank's stage alone
+    (``train/pipelined.to_pipelined_state``, JAX ``cli.py:813-814``)."""
+    if mesh.inner is not None and mesh.inner.name == PIPE_AXIS:
+        if mesh.distributed:
+            replicate_state(mesh, state)
+        to_pipelined_state(state, mesh)
+        return
     if not mesh.distributed:
         return
     replicate_state(mesh, state)
@@ -768,8 +865,9 @@ def _train(params: Dict[str, Any], kind: str, keys, terms,
     seed, each seed's valid pass drawing what seed 0's does
     (``make_multiseed_valid_step``)."""
     _multiseed_validate(params)
-    _refuse_unported_training(params)
-    mesh = create_mesh(params.get('mesh_shape'), params.get('device', 'cuda'))
+    pp = _pipeline_validate(params) if kind == 'gmd' else 0
+    tp = _tp_validate(params) if kind == 'gmd' else 0
+    mesh = _train_mesh(params, pp, tp)
     device = mesh.device
     if device.type == 'cuda':
         exact_bf16_products()
@@ -777,7 +875,17 @@ def _train(params: Dict[str, Any], kind: str, keys, terms,
             raise ValueError(f'a {mesh.backend} process group on {device}: '
                              'its collectives cannot be captured in a CUDA '
                              'graph; use NCCL or run with _graphed=False')
-    logger = setup_logger(params['alias'], mesh.rank)
+    logger = setup_logger(params['alias'], 0 if mesh.is_rank0 else 1)
+    if pp:
+        logger.info('pipeline parallelism: %d stages (nblocks=%d) on a '
+                    "{'data': %d, 'pipe': %d} mesh, %d microbatches/step",
+                    pp, pp + 1, mesh.world, pp,
+                    int(params.get('pipeline_microbatches', 4)))
+    elif tp:
+        logger.info('tensor parallelism: video recurrences (H=%d) hidden-'
+                    "sharded %d-way on a {'data': %d, 'model': %d} mesh; "
+                    'state replicated', int(params['video_rnn_hiddendim']),
+                    tp, mesh.world, tp)
     allow_existing, start_epoch = _resolve_auto_resume(params)
     saver = RunManager(params, allow_existing=allow_existing, mesh=mesh)
     lg = str(params['vfeat_fn']).lower() == 'lg'
@@ -831,6 +939,9 @@ def _train(params: Dict[str, Any], kind: str, keys, terms,
     for i in range(n_seeds_of(stacked)):
         _place_state(unstack_state(stacked, i), mesh, params, logger)
     graphed = graphed and unstack_state(stacked, 0).sharded is None
+    # a pipelined valid pass gathers the stages for its run and frees them
+    # after, at addresses a graph would pin: it runs eagerly
+    valid_graphed = graphed and unstack_state(stacked, 0).pipelined is None
     train_step = (_multiseed_step(train_steps) if n_seeds
                   else train_steps[0])
     train_gens = tuple(step.generator for step in train_steps)
@@ -846,20 +957,18 @@ def _train(params: Dict[str, Any], kind: str, keys, terms,
     n_batches = len(train_loader)
 
     def validate(i, epoch, generator=None):
-        """Seed ``i``'s valid pass: its mIoU (under FSDP on the gathered
-        weights)."""
+        """Seed ``i``'s valid pass: its mIoU (under FSDP and on a
+        pipelined state on the gathered weights, JAX ``cli.py:966-973``)."""
         suffix = f'.s{i}' if n_seeds else ''
-        sharded = unstack_state(stacked, i).sharded
-        with (sharded.gathered() if sharded is not None
-              else contextlib.nullcontext()):
+        with unstack_state(stacked, i).gathered():
             if kind == 'gmd':
                 return run_valid(valid_steps[i], valid_loader, params,
                                  logger, epoch, saver, device, generator,
-                                 valid_bank, graphed, suffix, mesh)
+                                 valid_bank, valid_graphed, suffix, mesh)
             return run_eval_collect(valid_steps[i], valid_loader, params,
                                     logger, epoch, saver, device,
-                                    'val_data', valid_bank, graphed, suffix,
-                                    mesh)
+                                    'val_data', valid_bank, valid_graphed,
+                                    suffix, mesh)
     valid_passes = make_multiseed_valid_step(
         [functools.partial(validate, i) for i in range(len(valid_steps))])
 

@@ -16,9 +16,11 @@ of each ``--global-batch``:
    the ranks must agree bit for bit. Rank 0 then runs the single-process
    step at the global batch with no process group, from the same weights
    and generator, and holds the ranks' step-1 loss within 1e-5 and each
-   parameter within a relative L2 of 1e-4 (the span logits' biases,
-   whose gradient is rounding noise, within 2 lr an update), naming the
-   worst parameter; each rank's resident state bytes and peak memory.
+   parameter by the parity rule of the parallel checks
+   (``utils/parity.py``: a relative L2 of 1e-4, past it the reference's
+   Adam-step rule at the update count), naming the worst parameter within
+   1e-4 and those past it that passed by the Adam-step rule; each rank's
+   resident state bytes and peak memory.
 2. ``graphed`` (on a card): the update captured in a CUDA graph with its
    NCCL all-reduces (``cli._GraphedTick``), device ms a replay from CUDA
    events over ``--iters`` replays, beside the same update on the rank's
@@ -52,13 +54,10 @@ from .profile_train import train_batch
 from .train.state import TrainState
 from .train.steps import make_gmd_train_step
 from .utils.device import exact_bf16_products
+from .utils.parity import hold_weights
 
 STEPS = 3
-LOSS_RTOL, REL_L2 = 1e-5, 1e-4
-# the biases added to every start or end logit before the softmax over the
-# clips: gradient 0 but for rounding, held within 2 lr an update
-SHIFT_INVARIANT = ('span_predictor.predictor.start_mlp_2.bias',
-                   'span_predictor.predictor.end_mlp_2.bias')
+LOSS_RTOL = 1e-5
 TINY = ['--video_feature_dim', '32', '--video_len', '24', '--sent_len', '8',
         '--sent_rnn_hiddendim', '8', '--video_rnn_hiddendim', '8',
         '--mlp_hidden_dim', '8', '--m_pred_hidden', '16']
@@ -105,21 +104,14 @@ def _digest(weights) -> torch.Tensor:
                         .to(torch.int64).sum() for v in weights.values()])
 
 
-def _hold(what, got, want, drift):
-    """(the worst relative L2 of ``got`` against ``want``, its parameter);
-    raises past the tolerances."""
-    worst = (0.0, None)
-    for k, v in want.items():
-        g, v = got[k].double().cpu(), v.double().cpu()
-        if k in SHIFT_INVARIANT:
-            if float((g - v).abs().max()) > drift:
-                raise AssertionError(f'{what}: {k} past {drift}')
-            continue
-        err = float((g - v).norm() / max(float(v.norm()), 1e-12))
-        worst = max(worst, (err, k))
-        if err > REL_L2:
-            raise AssertionError(f'{what}: {k} relative L2 {err:.3e}')
-    return worst
+def _hold(what, got, want, lr, updates):
+    """(the worst relative L2 of ``got`` against ``want`` among the
+    parameters within 1e-4, its parameter, the parameters past it that
+    passed by the Adam-step rule); raises where the parity rule fails."""
+    res = hold_weights(what, {k: v.cpu() for k, v in got.items()},
+                       {k: v.cpu() for k, v in want.items()}, lr, updates)
+    return (res['worst_within_rel_l2'], res['worst_within_leaf'],
+            res['adam_leaves'])
 
 
 def _graphed_ms(params, dev, mesh, batch, iters):
@@ -169,7 +161,7 @@ def measure(args) -> dict:
     out = {'world': mesh.world, 'backend': mesh.backend,
            'device': str(dev), 'cases': []}
     n = args.updates
-    drift = 2 * float(params['lr']) * (n + 1)  # _updates' n + 1
+    lr = float(params['lr'])
     for global_b in args.global_batch:
         if global_b % mesh.world:
             raise ValueError(f'--global-batch {global_b} over {mesh.world}')
@@ -203,8 +195,9 @@ def measure(args) -> dict:
             if err > LOSS_RTOL:
                 raise AssertionError(f'ddp step-1 loss {metrics[0]} against '
                                      f'{want[0]}')
-            case['ddp_worst_rel_l2'], case['ddp_worst_parameter'] = _hold(
-                'ddp', weights, one.weights(), drift)
+            (case['ddp_worst_rel_l2'], case['ddp_worst_parameter'],
+             case['ddp_adam_step_parameters']) = _hold(
+                'ddp', weights, one.weights(), lr, n + 1)
             case['ddp_step1_loss_rel_err'] = err
             del one
         mesh.barrier()
@@ -228,8 +221,9 @@ def measure(args) -> dict:
         if err > LOSS_RTOL:
             raise AssertionError(f'fsdp step-1 loss {smetrics[0]} against '
                                  f'{metrics[0]}')
-        case['fsdp_worst_rel_l2'], case['fsdp_worst_parameter'] = _hold(
-            'fsdp', sweights, weights, drift)
+        (case['fsdp_worst_rel_l2'], case['fsdp_worst_parameter'],
+         case['fsdp_adam_step_parameters']) = _hold(
+            'fsdp', sweights, weights, lr, n + 1)
         case.update(fsdp_step1_loss_rel_err=err, fsdp_eager_ms=sms, fsdp_peak_mib=speak,
                     fsdp_resident_bytes=resident_state_bytes(shrd),
                     fsdp_leaves_split=(0 if shrd.sharded is None else sum(

@@ -138,14 +138,28 @@ def make_optimizer(model: nn.Module, params: Dict[str, Any]
 
 
 @torch.no_grad()
-def clip_by_global_norm(parameters, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(parameters, max_norm: float,
+                        split=None) -> torch.Tensor:
     """``optax.clip_by_global_norm``: gradients keep their values while
     their global norm is below ``max_norm`` and are scaled by max_norm/norm
     otherwise (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm,
-    which is another result). Returns the norm before clipping."""
-    grads = [p.grad for p in parameters if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    which is another result). Returns the norm before clipping. With
+    ``split`` (a ``PipelinedState``) the global norm is the whole model's:
+    the squared norms of its ``owned`` stage, which each pipe rank holds
+    for its own, summed over the pipe axis, added to the others'."""
+    params = list(parameters)
+    grads = [p.grad for p in params if p.grad is not None]
+    if split is None:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    else:
+        own = {id(p) for p in split.owned}
+        sq = [torch.linalg.vector_norm(p.grad).square() for p in params
+              if p.grad is not None and id(p) in own]
+        rest = [torch.linalg.vector_norm(p.grad).square() for p in params
+                if p.grad is not None and id(p) not in own]
+        staged = split.axis.all_sum_(torch.stack(sq).sum().reshape(1))[0]
+        norm = (torch.stack(rest).sum() + staged).sqrt()
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -164,7 +178,10 @@ class TrainState:
     ``DataMesh`` with a process group, and :meth:`update` means the
     gradients over the ranks first; ``sharded``, a ``ShardedState``
     under FSDP, then takes the update, and :meth:`weights` and
-    :meth:`state_dict` gather the full state."""
+    :meth:`state_dict` gather the full state. ``pipelined``, a
+    ``train/pipelined.PipelinedState`` on a pipe axis, holds the rank's
+    stage; the clip's norm then spans the stages, and :meth:`weights` and
+    :meth:`state_dict` gather the sequential layout."""
 
     def __init__(self, model: nn.Module, params: Dict[str, Any],
                  steps_per_epoch: int):
@@ -176,6 +193,7 @@ class TrainState:
                      if params.get('grad_clip') else None)
         self.mesh = None
         self.sharded = None
+        self.pipelined = None
 
     @contextlib.contextmanager
     def forward_context(self):
@@ -211,7 +229,8 @@ class TrainState:
         if self.mesh is not None:
             self.mesh.sync_grads(self.model.parameters())
         if self.clip is not None:
-            clip_by_global_norm(self.model.parameters(), self.clip)
+            clip_by_global_norm(self.model.parameters(), self.clip,
+                                self.pipelined)
         self.optimizer.step()
 
     def apply_gradients(self) -> None:
@@ -224,16 +243,31 @@ class TrainState:
         """The update count and the optimizer's ``state_dict`` (its
         tensors the live ones: copy them before the next update; under
         FSDP gathered, a collective)."""
-        if self.sharded is not None:
-            return self.sharded.state_dict()
+        split = self.sharded or self.pipelined
+        if split is not None:
+            return split.state_dict()
         return {'step': self.step, 'optimizer': self.optimizer.state_dict()}
 
     def weights(self) -> Dict[str, torch.Tensor]:
-        """The model's ``state_dict`` (under FSDP gathered, a
-        collective)."""
-        if self.sharded is not None:
-            return self.sharded.weights()
+        """The model's ``state_dict`` (under FSDP, and of a pipelined
+        state in the sequential layout, gathered: a collective)."""
+        split = self.sharded or self.pipelined
+        if split is not None:
+            return split.weights()
         return self.model.state_dict()
+
+    @property
+    def gathers(self) -> bool:
+        """Whether :meth:`weights` and :meth:`state_dict` are collectives
+        every rank joins (FSDP, a pipelined state)."""
+        return self.sharded is not None or self.pipelined is not None
+
+    def gathered(self):
+        """The model whole for the body (a valid pass): under FSDP and on
+        a pipelined state gathered and freed after, a collective."""
+        split = self.sharded or self.pipelined
+        return split.gathered() if split is not None \
+            else contextlib.nullcontext()
 
     @torch.no_grad()
     def load_state_dict(self, sd: Dict[str, Any]) -> None:

@@ -246,7 +246,8 @@ def _global_means(metrics: Batch, mesh) -> Batch:
 
 
 def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
-                        lg_frame2sec: bool = False, assembler=None
+                        lg_frame2sec: bool = False, assembler=None,
+                        forward=None, reduce_grads=None
                         ) -> Callable[[Batch, torch.Generator], Batch]:
     """Returns step(batch, generator) -> metrics: one optimizer update of
     ``state`` from one batch of raw videos (and, without
@@ -255,7 +256,14 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
     as 0-d tensors on the batch's device. ``step.loss_fn(batch, pseudo,
     generator) -> (loss, aux)`` is the loss alone. ``step.inner(batch,
     generator)`` is the step without its host bookkeeping: the caller
-    sets ``step.state``'s rate (``set_lr``) and counts the update."""
+    sets ``step.state``'s rate (``set_lr``) and counts the update.
+
+    ``forward(batch, pseudo, generator)`` -> GMD's output dict replaces
+    the model's pair forward (JAX's ``forward`` seam, ``:118-126``): the
+    tensor- and pipeline-parallel encoders plug in there and keep this
+    loss. ``reduce_grads()``, where given, runs after the backward and
+    before the update: their reduction of the gradients over the mesh's
+    inner axis."""
     m1 = float(params['loss_m1_lambda'])
     m2 = float(params['loss_m2_lambda'])
     md = float(params['loss_disc_lambda'])
@@ -265,7 +273,8 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
     assemble = assembler or _identity
 
     def loss_fn(batch: Batch, pseudo: Batch, generator):
-        out = _pair_forward(model, batch, pseudo, generator)
+        out = (_pair_forward(model, batch, pseudo, generator)
+               if forward is None else forward(batch, pseudo, generator))
         loss_g, loss_intra, loss_inter = _match_losses(out, batch, pseudo,
                                                        m1, m2, state.mesh)
         loss_disc = temporal_order_discrimination_loss(
@@ -292,6 +301,8 @@ def make_gmd_train_step(model, state: TrainState, params: Dict[str, Any],
                 pseudo = {k: batch['pseudo_' + k] for k in PSEUDO_KEYS}
             aux = _backward(loss_fn, model.parameters(), batch, pseudo,
                             generator, accum, _GMD_LOSS_KEYS)
+        if reduce_grads is not None:
+            reduce_grads()
         state.update()
         metrics = {k: v.detach() for k, v in aux.items()}
         *_, metrics['miou'] = _stats(metrics.pop('start_prob'),

@@ -228,12 +228,12 @@ class RunManager:
         ``sync``, schedule the write (:class:`AsyncCheckpointer`). The
         emergency checkpoint passes ``sync=True``: the run stops right
         after. Returns the ``.ckp``'s path. On a mesh every rank calls it:
-        rank 0 writes (under FSDP after the gather every rank joins), then
-        the ranks meet at a barrier."""
+        rank 0 writes (under FSDP and on a pipelined state after the
+        gather every rank joins), then the ranks meet at a barrier."""
         path = (self.model_path(path_or_step)
                 if isinstance(path_or_step, int) else path_or_step)
         if not self.writes:
-            if state is not None and state.sharded is not None:
+            if state is not None and state.gathers:
                 snapshot(model, state, generators)  # the gather's collectives
         elif self._async is not None and not sync:
             self._async.save(path, model, state, generators)
@@ -261,7 +261,9 @@ class RunManager:
         """Write ``submits`` as ``<alias>_<step:05d>_<split>.json``, the
         split named by the file of ``params[key]``; a key
         ``'<key>.<suffix>'`` (a multi-seed run's ``val_data.s{i}``) writes
-        ``<split>.<suffix>``, as JAX's does (``utils/saver.py:162``)."""
+        ``<split>.<suffix>``, as JAX's does (``utils/saver.py:162``). On a
+        2-D mesh the ranks of a row hold the same part, which its first
+        rank writes."""
         base, _, suffix = key.partition('.')
         split = self.params[base].split('/')[-1].split('.')[0]
         if suffix:
@@ -269,6 +271,8 @@ class RunManager:
         file_name = os.path.join(
             self.submits_folder,
             '%s_%05d_%s.json' % (self.params['alias'], step, split))
+        if self.mesh is not None and not self.mesh.leads_row:
+            return file_name
         with open(file_name, 'w') as f:
             json.dump(_jsonable(submits), f)
         return file_name

@@ -1,12 +1,16 @@
-"""The ranks of the data-parallel CPU tests, and the launcher that starts
+"""The ranks of the parallel CPU tests, and the launcher that starts
 them.
 
 ``tests/test_torch_data_parallel.py`` and ``tests/test_torch_fsdp.py``
 each start one group of two ranks a module (:func:`launch`, behind a
-module fixture): ``torchrun --standalone --nproc_per_node 2`` of this
+module fixture), ``tests/test_torch_tensor_parallel.py`` and
+``tests/test_torch_pipeline.py`` theirs (the tensor-parallel one a group
+of four too): ``torchrun --standalone --nproc_per_node <world>`` of this
 file, which runs the tasks a JSON spec names, one after another, on
 every rank over gloo on the CPU, and saves each rank's results as
-``<out>/rank{r}.pt``. The first task that reaches ``cli`` starts the
+``<out>/rank{r}.pt``. A task is a function of this module, or
+``module:function`` of another module under ``tests/``
+(``mp_ranks.py``: the model and pipe axes). The first task that reaches ``cli`` starts the
 process group from torchrun's environment, as ``python -m
 shufflingvideosfortsg_torch.train`` does under torchrun; later tasks
 run in it. A group that passes its deadline is killed and a fresh one
@@ -19,6 +23,7 @@ Not a test module (pytest collects ``test_*.py`` only)::
         tests/dp_group.py <spec.json>
 """
 
+import importlib
 import json
 import os
 import signal
@@ -37,8 +42,8 @@ class Group:
     """A started group of ranks: :meth:`results` waits for it (restarting
     it once past its deadline) and returns each rank's results."""
 
-    def __init__(self, spec_path: str, out: str):
-        self.spec_path, self.out = spec_path, out
+    def __init__(self, spec_path: str, out: str, world: int = WORLD):
+        self.spec_path, self.out, self.world = spec_path, out, world
         self.attempt = 0
         self._start()
 
@@ -50,7 +55,7 @@ class Group:
         self.log = open(os.path.join(self.out, f'log{self.attempt}.txt'), 'w')
         self.proc = subprocess.Popen(
             [sys.executable, '-m', 'torch.distributed.run', '--standalone',
-             '--nproc_per_node', str(WORLD), os.path.abspath(__file__),
+             '--nproc_per_node', str(self.world), os.path.abspath(__file__),
              self.spec_path], stdout=self.log, stderr=subprocess.STDOUT,
             env=env, cwd=_ROOT, start_new_session=True)
         self.t0 = time.monotonic()
@@ -74,17 +79,17 @@ class Group:
             with open(self.log.name) as f:
                 raise AssertionError(f'ranks exited {rc}:\n{f.read()[-6000:]}')
         return [torch.load(os.path.join(self.out, f'rank{r}.pt'),
-                           weights_only=False) for r in range(WORLD)]
+                           weights_only=False) for r in range(self.world)]
 
 
-def launch(out: str, tasks) -> Group:
-    """Start the ranks over ``tasks`` ([[name, kwargs], ...], functions of
-    this module) with results under ``out``."""
+def launch(out: str, tasks, world: int = WORLD) -> Group:
+    """Start ``world`` ranks over ``tasks`` ([[name, kwargs], ...]) with
+    results under ``out``."""
     os.makedirs(out, exist_ok=True)
     spec = os.path.join(out, 'spec.json')
     with open(spec, 'w') as f:
         json.dump({'out': out, 'tasks': tasks}, f)
-    return Group(spec, out)
+    return Group(spec, out, world)
 
 
 # --- what a rank runs ---------------------------------------------------------
@@ -128,21 +133,22 @@ def _run_module(module, argv):
         sys.argv = saved
 
 
-def driver(argv, kind='gmd', entry=None, module=None):
+def driver(argv, kind='gmd', entry=None, module=None, maker=None):
     """A driver run from argv: ``entry`` 'train' or 'test' of ``kind``
     ('gmd' or 'baseline'), through ``cli`` or, with ``module``, through
     that entry point (``python -m shufflingvideosfortsg_torch.train``).
     Training returns each made step's final weights (the seeds' in turn;
-    under FSDP gathered, on every rank) and the path of the run; a test
-    run its submit."""
+    under FSDP and on a pipelined state gathered, on every rank; ``maker``
+    names the step maker ``cli`` calls, GMD's by default) and the path of
+    the run; a test run its submit."""
     cli = _cli()
     default = 'GMD' if kind == 'gmd' else 'QAVE'
     params = cli.parse_params(argv, default_model=default)
     if entry == 'test':
         fn = cli.main_test if kind == 'gmd' else cli.main_test_baseline
         return {'submit': fn(params)}
-    maker = 'make_gmd_train_step' if kind == 'gmd' else \
-        'make_baseline_train_step'
+    maker = maker or ('make_gmd_train_step' if kind == 'gmd' else
+                      'make_baseline_train_step')
     made, restore = _capture(cli, maker)
     stats = None
     try:
@@ -280,7 +286,10 @@ def main(spec_path: str) -> None:
         spec = json.load(f)
     results = []
     for name, kwargs in spec['tasks']:
-        results.append(globals()[name](**kwargs))
+        module, _, fn = name.rpartition(':')
+        task = (getattr(importlib.import_module(module), fn) if module
+                else globals()[fn])
+        results.append(task(**kwargs))
     rank = int(os.environ['RANK'])
     tmp = os.path.join(spec['out'], f'rank{rank}.pt.tmp')
     torch.save(results, tmp)

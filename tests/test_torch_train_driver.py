@@ -164,8 +164,12 @@ def test_trace_dir_writes_a_chrome_trace(corpus, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('flag', [
-    (['--pipeline_stages', '1'], NotImplementedError, 'not ported'),
-    (['--tensor_parallel', '2'], NotImplementedError, 'not ported'),
+    # the model and pipe axes are ported (train/tp.py, train/pipelined.py);
+    # JAX's invalid combinations stay refused, with JAX's messages
+    (['--pipeline_stages', '1', '--fsdp'], ValueError,
+     '--pipeline_stages does not compose with --fsdp'),
+    (['--tensor_parallel', '2', '--multi_seed', '2'], ValueError,
+     '--tensor_parallel does not compose with --multi_seed'),
     # fsdp is ported (parallel/fsdp.py); with --multi_seed it stays
     # refused, with JAX's message
     (['--fsdp', '--multi_seed', '2'], ValueError,
