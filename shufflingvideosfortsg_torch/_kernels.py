@@ -61,7 +61,32 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
-_library: Optional[ctypes.CDLL] = None
+_library: Optional['_KeepingDevice'] = None
+
+
+class _KeepingDevice:
+    """The loaded library, each entry point restoring the caller's
+    current card when it returns. The C side makes the card it is given
+    current (``cudaSetDevice``) and leaves it so; in a process that drives
+    several cards a launch on one would otherwise move every later call
+    that names no card (an allocation on ``cuda``, an event, a bare
+    synchronize) onto it."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+
+    def __getattr__(self, name: str):
+        import torch
+        fn = getattr(self._lib, name)
+
+        def call(*args):
+            prev = torch.cuda.current_device()
+            try:
+                return fn(*args)
+            finally:
+                torch.cuda.set_device(prev)
+        setattr(self, name, call)  # looked up once
+        return call
 
 
 def nvcc_path() -> str:
@@ -136,7 +161,7 @@ def build() -> Tuple[str, float, str]:
     return lib_path, time.perf_counter() - t0, '\n'.join(logs)
 
 
-def library() -> ctypes.CDLL:
+def library() -> _KeepingDevice:
     """The loaded kernel library, built at first use."""
     global _library
     with _lock:
@@ -148,7 +173,7 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.svtsg_error_string.argtypes = [ctypes.c_int]
             lib.svtsg_error_string.restype = ctypes.c_char_p
-            _library = lib
+            _library = _KeepingDevice(lib)
     return _library
 
 

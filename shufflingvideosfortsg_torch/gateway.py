@@ -22,6 +22,14 @@ on that event, posts the results and frees the slot. Depth 1 is the
 synchronous form, launch, fetch, post loop. A worker that raises shuts the
 queue and hands its exception to every client.
 
+Each padded batch is cut over the grounder's shards as its ``ground*``
+calls cut theirs (JAX ``gateway.py:262-265``;
+``MultiQueryGrounder._dispatch_tokens``: equal parts, one of them on one
+shard, or each request routed to the shard that holds its video in a
+sharded bank); the worker makes each card current as it dispatches its
+part and records its part's event there, and the completer waits for the
+events and puts the rows back in order (``utils/batches.parts_to_host``).
+
 Usage::
 
     g = MultiQueryGrounder(params, state_dict, query_batch=256)
@@ -44,6 +52,7 @@ import numpy as np
 import torch
 
 from . import _native
+from .utils.batches import on_device, parts_to_host
 
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
@@ -218,14 +227,16 @@ class ServingGateway:
                     item = inflight.get()
                     if item is None:
                         return
-                    tickets, (pred, score), done, n = item
-                    if done is not None:
-                        done.synchronize()
-                    pred = pred.numpy()[:n]
+                    tickets, parts, events, n = item
+                    for done in events:
+                        if done is not None:
+                            done.synchronize()
+                    pred, score = parts_to_host(parts, qb)
+                    pred = pred[:n]
                     self.queue.complete(tickets,
                                         pred[:, 0].astype(np.float32),
                                         pred[:, 1].astype(np.float32),
-                                        score.numpy()[:n])
+                                        score[:n])
                     slots.release()
             except Exception as exc:  # noqa: BLE001 — surfaced to clients
                 self._exc = exc
@@ -257,13 +268,15 @@ class ServingGateway:
                     tokens = np.concatenate(
                         [tokens, np.repeat(tokens[-1:], qb - n, axis=0)])
                     vids = np.concatenate([vids, np.repeat(vids[-1:], qb - n)])
-                chunk = g._put(tokens, np.int32)
-                if self.mode == 'bank':
-                    out = g._serve_multi_tokens(chunk, g._put(vids, np.int32))
-                else:
-                    out = g._serve_tokens(chunk)
-                host, done = _to_host(*out)
-                inflight.put((tickets, host, done, n))
+                parts = g._dispatch_tokens(
+                    tokens, vids if self.mode == 'bank' else None)
+                host, events = [], []
+                for rows, out in parts:
+                    with on_device(out[0].device):
+                        copies, done = _to_host(*out)
+                    host.append((rows, copies))
+                    events.append(done)
+                inflight.put((tickets, host, events, n))
         except Exception as exc:  # noqa: BLE001 — surfaced to clients
             self._exc = exc
             self.queue.shutdown()

@@ -9,7 +9,10 @@ ops ``svtsg::lstm_recurrence`` and ``svtsg::scdm_attention``, which
 so small that the host decides the time (K1 at T=1, B=1, H=64; K2 at
 B=1, T=4, N=2, Dh=Ds=8), this prints the microseconds of a call of each
 wrapper and of its launch alone (``_launch_forward``, which the wrapper
-reaches through the op), as wall time over ``--calls`` calls. Then
+reaches through the op), as wall time over ``--calls`` calls, and a C
+entry point that does no device work (``svtsg_scdm_smem_bytes``) through
+the kernel library and through the bare ``ctypes`` library under it:
+what setting the caller's current card back costs a call. Then
 ``profile_serve.measure`` of one video of 1,024 clips against 4 batches
 of 512 queries as f32 features (its ``video_f32`` mode) in f32 and in
 bf16: wall and device ms a batch, the busy share.
@@ -29,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from . import _kernels
 from .config import load_config
 from .models.build import build_model
 from .ops import lstm_scan, scdm_fused
@@ -57,6 +61,9 @@ def dispatch(calls: int, dev: torch.device) -> dict:
     w_hh = (torch.randn(2, H, 4 * H, generator=gen) * 0.1).to(dev)
     args = [torch.randn(*s, generator=gen).to(dev)
             for s in ((1, 4, 8), (1, 2, 8), (8,), (1, 2, 8))]
+    lib = _kernels.library()
+    entry = lib.svtsg_scdm_smem_bytes
+    entry_raw = getattr(lib, '_lib', lib).svtsg_scdm_smem_bytes
     with torch.no_grad():
         return {
             'K1_wrapper_us': call_us(
@@ -66,7 +73,9 @@ def dispatch(calls: int, dev: torch.device) -> dict:
             'K2_wrapper_us': call_us(
                 lambda: scdm_fused.scdm_attention_fused(*args), calls),
             'K2_launch_us': call_us(
-                lambda: scdm_fused._launch_forward(tuple(args), False), calls)}
+                lambda: scdm_fused._launch_forward(tuple(args), False), calls),
+            'entry_us': call_us(lambda: entry(32, 15, 4), calls),
+            'entry_raw_us': call_us(lambda: entry_raw(32, 15, 4), calls)}
 
 
 def serve_video(precision: str, batch: int) -> dict:

@@ -118,9 +118,15 @@ def export_grounder(grounder, out_dir: str,
     stored in ``bank.npz``. Shapes are fixed: the grounder's
     ``query_batch``, the config's ``sent_len``, the resident T.
     ``platforms`` (default: the grounder's device) are the devices to
-    trace a program for; ``cuda`` needs a card."""
+    trace a program for; ``cuda`` needs a card. A grounder over several
+    shards raises: an artifact serves on one device."""
     from ..serving import (precompute, serve_bank, serve_bank_tokens,
                            serve_features, serve_tokens)
+    if len(grounder.replicas) > 1:
+        raise ValueError(
+            f'export_grounder exports a one-card grounder; this one is laid '
+            f'over {len(grounder.replicas)} shards (build it without '
+            'mesh_shape or devices= to export)')
     rnn0, bank = grounder._resident_rnn0, grounder._resident_bank
     emb = grounder._resident_emb
     if rnn0 is None and bank is None:

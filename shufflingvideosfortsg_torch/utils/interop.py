@@ -17,7 +17,8 @@ weight/bias; the SCDM ``w`` [Dh, 1] -> ``w.weight`` [1, Dh]; flax's
 The modules no config key reaches map one by one: ``bigru_to_torch``
 (``ops/rnn.BiGRU``), ``dense_tree_to_torch`` (``models/transformer.py``,
 ``models/graph.py``) and ``_predictor_to_torch`` (the span and content
-predictors).
+predictors); :func:`moe_params_from_jax` carries the MoE layer's
+parameters (``parallel/expert_parallel.py``), which keep JAX's layout.
 
 Every variant a config selects maps. Where JAX's
 ``utils/torch_interop.py`` (``:78-100``, ``:205-257``) defines reference
@@ -159,6 +160,14 @@ def state_dict_from_jax(params_np: Dict, sent_layers: int = 2,
     linear_to_torch(params_np['tod']['classifier'],
                     'tod.fc_classifier_domain_video.0', out)
     return out
+
+
+def moe_params_from_jax(params_np: Dict) -> Dict[str, torch.Tensor]:
+    """JAX ``expert_parallel.init_moe_params``'s tree (numpy arrays) as
+    the port's MoE parameters: the same names and layouts (router [C, E],
+    w1 [E, C, Hm], b1 [E, Hm], w2 [E, Hm, C], b2 [E, C]), f32."""
+    return {k: _f32(params_np[k]) for k in ('router', 'w1', 'b1', 'w2',
+                                            'b2')}
 
 
 def load_reference_ckp(path: str) -> Dict[str, torch.Tensor]:

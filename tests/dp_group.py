@@ -5,12 +5,13 @@ them.
 each start one group of two ranks a module (:func:`launch`, behind a
 module fixture), ``tests/test_torch_tensor_parallel.py`` and
 ``tests/test_torch_pipeline.py`` theirs (the tensor-parallel one a group
-of four too): ``torchrun --standalone --nproc_per_node <world>`` of this
+of four too), ``tests/test_torch_expert_parallel.py`` one of four:
+``torchrun --standalone --nproc_per_node <world>`` of this
 file, which runs the tasks a JSON spec names, one after another, on
 every rank over gloo on the CPU, and saves each rank's results as
 ``<out>/rank{r}.pt``. A task is a function of this module, or
 ``module:function`` of another module under ``tests/``
-(``mp_ranks.py``: the model and pipe axes). The first task that reaches ``cli`` starts the
+(``mp_ranks.py``: the model, pipe and expert axes). The first task that reaches ``cli`` starts the
 process group from torchrun's environment, as ``python -m
 shufflingvideosfortsg_torch.train`` does under torchrun; later tasks
 run in it. A group that passes its deadline is killed and a fresh one

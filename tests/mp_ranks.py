@@ -1,6 +1,7 @@
-"""What a rank of the model- and pipe-axis CPU tests runs
-(``tests/test_torch_tensor_parallel.py``, ``tests/test_torch_pipeline.py``),
-started by ``tests/dp_group.py`` as ``mp_ranks:<task>``. Each task reads
+"""What a rank of the model-, pipe- and expert-axis CPU tests runs
+(``tests/test_torch_tensor_parallel.py``, ``tests/test_torch_pipeline.py``,
+``tests/test_torch_expert_parallel.py``), started by ``tests/dp_group.py``
+as ``mp_ranks:<task>``. Each task reads
 its inputs (a ``torch.save`` of params, weights and a batch) and returns
 what the test holds: a rank's metrics, weights and gradients.
 
@@ -112,3 +113,27 @@ def pp_encoder(inputs, pp, n_micro):
                       if p.grad is not None and (
                           not k.startswith('blocks.') or
                           k.startswith('blocks.0.') or k.startswith(stage))}}
+
+
+def ep_moe(inputs, dp, ep, capacity):
+    """``moe_ffn_sharded`` over a (dp, ep) expert mesh on this rank's token
+    stripe r = d * ep + k of the inputs' x: its output, the gradients of
+    sum(y ** 2) in the stripe, the router (summed over every rank) and the
+    expert weights (each rank's rows, summed over the data axis), and
+    ``moe_span_head`` at capacity 0 on the stripe (every token dropped)."""
+    from shufflingvideosfortsg_torch.parallel.expert_parallel import (
+        create_ep_mesh, moe_ffn_sharded, moe_span_head)
+    mesh = create_ep_mesh(dp, ep, 'cpu')
+    r = mesh.rank * ep + mesh.inner.rank
+    data = torch.load(inputs, weights_only=False)
+    params = {k: v.clone().requires_grad_()
+              for k, v in data['params'].items()}
+    stripe = data['x'].shape[0] // (dp * ep)
+    x = data['x'][r * stripe:(r + 1) * stripe].clone().requires_grad_()
+    y = moe_ffn_sharded(params, x, mesh, capacity)
+    (y ** 2).sum().backward()
+    feat = x.detach().reshape(2, stripe // 2, -1)
+    head = moe_span_head(data['params'], feat, 0, mesh)
+    return {'rank': r, 'y': y.detach(), 'dx': x.grad,
+            'grads': {k: p.grad for k, p in params.items()},
+            'identity': torch.equal(head, feat)}

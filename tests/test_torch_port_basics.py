@@ -112,6 +112,22 @@ def test_scans_cover_the_aot_and_zoo_modules():
         assert os.path.isfile(path), path
 
 
+PARALLEL_SERVING_MODULES = (
+    'shufflingvideosfortsg_torch.parallel.seq_parallel',
+    'shufflingvideosfortsg_torch.parallel.expert_parallel',
+    'shufflingvideosfortsg_torch.serving',
+    'shufflingvideosfortsg_torch.gateway')
+
+
+def test_scans_cover_the_parallel_serving_modules():
+    """Sequence and expert parallelism and the grounder over shards are in
+    what the two scans walk."""
+    assert set(PARALLEL_SERVING_MODULES) <= set(_port_modules())
+    for name in PARALLEL_SERVING_MODULES:
+        path = os.path.join(REPO, *name.split('.')) + '.py'
+        assert os.path.isfile(path), path
+
+
 def test_serving_runs_on_cuda_by_default(monkeypatch):
     """The grounder's device defaults to ``cuda`` and a missing card
     raises before any work; ``profile_serve`` measures on a card only."""

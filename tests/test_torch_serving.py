@@ -332,12 +332,36 @@ def test_ground_topk_matches_jax(weights):
 
 
 def test_mesh_options_raise_on_one_card(weights, tmp_path):
+    """On one shard the mesh options are the one-card paths:
+    ``set_corpus(shard=True)`` holds the unsharded bank, bit for bit, and
+    ``set_video_sharded`` (block 0 as one time chunk) ``set_video``'s
+    rnn0 within f32 reassociation, grounding alike; the other options
+    still refuse what they cannot take."""
     _, pg = grounders(weights)
-    root = _write_pack(np.random.RandomState(9), str(tmp_path / 'pack'))
-    with pytest.raises(NotImplementedError, match='ROADMAP.md §1, the parallel surfaces'):
-        pg.set_corpus(PackedFeatureSource(root), shard=True)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md §1, the parallel surfaces'):
-        pg.set_video_sharded(np.zeros((T, DV), np.float32))
+    _, ref = grounders(weights)
+    rng = np.random.RandomState(9)
+    root = _write_pack(rng, str(tmp_path / 'pack'))
+    for tier in ('raw', 'int8'):
+        pg.set_corpus(PackedFeatureSource(root), chunk_videos=3, shard=True,
+                      dtype=tier)
+        ref.set_corpus(PackedFeatureSource(root), chunk_videos=3, dtype=tier)
+        got, want = pg._resident_bank, ref._resident_bank
+        for a, b in zip(*((x if isinstance(x, tuple) else (x,))
+                          for x in (got, want))):
+            assert torch.equal(a, b), tier
+    video = rng.randn(T, DV).astype(np.float32)
+    queries = rng.randn(11, N, 300).astype(np.float32)
+    pg.set_video_sharded(video)
+    ref.set_video(video)
+    assert pg._resident_rnn0.shape == ref._resident_rnn0.shape
+    np.testing.assert_allclose(pg._resident_rnn0.numpy(),
+                               ref._resident_rnn0.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    got = pg.ground(None, queries)
+    want = ref.ground(None, queries)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-4, atol=1e-6)
+    _, pg = grounders(weights)
     with pytest.raises(ValueError, match='raw or int8'):
         pg.set_corpus(PackedFeatureSource(root), dtype='bf16')
     with pytest.raises(RuntimeError, match='no video set'):
