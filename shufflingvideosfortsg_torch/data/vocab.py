@@ -13,11 +13,14 @@ indexing rules (reference: charades.py:120-132, anet.py:92-112):
   whitespace collapsed; pad to sent_len or truncate.
 
 The offline vocabulary-building functions stay in the JAX package's copy, which
-``generate_glove_wordembed.py`` uses.
+``generate_glove_wordembed.py`` uses. :func:`write_synthetic_vocab` writes
+a vocabulary in the reference's format from a seed, for corpora that need
+one where the GloVe artifacts are absent (``run_learning.py``).
 """
 
 from __future__ import annotations
 
+import os
 import string
 from typing import Dict, Iterable, List, Sequence, Tuple
 
@@ -42,6 +45,41 @@ class Vocab:
     def encode(self, tokens: Iterable[str]) -> List[int]:
         """OOV words are dropped, matching the reference indexer."""
         return [self.wordtoix[w] for w in tokens if w in self.wordtoix]
+
+
+GLOVE_DIM = 300
+
+
+def write_synthetic_vocab(words_dir: str, n_words: int = 400,
+                          seed: int = 0) -> Dict[str, str]:
+    """A vocabulary in the reference's format made from ``seed``: index 0
+    is ``'#START#'`` in ``wordtoix.npy`` and ``'.'`` in ``ixtoword.npy``
+    (``build_word_vocab``'s aliasing), then ``n_words`` distinct lowercase
+    words of 4-9 letters, purely alphabetic (``tools/make_signal_corpus.py``
+    keeps only ``w.isalpha()`` words), and ``word_glove_fts_init.npy``, a
+    [n_words + 1, 300] f32 matrix of normal entries with GloVe's spread
+    (std 0.4). Writes the three files under ``words_dir`` and returns their
+    paths by name (``wordtoix``, ``ixtoword``, ``word_glove_fts_init``)."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list(string.ascii_lowercase))
+    words: List[str] = []
+    seen = set()
+    while len(words) < n_words:
+        w = ''.join(rng.choice(letters, size=int(rng.integers(4, 10))))
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    wordtoix = {'#START#': 0, **{w: i + 1 for i, w in enumerate(words)}}
+    ixtoword = {0: '.', **{i + 1: w for i, w in enumerate(words)}}
+    emb = (0.4 * rng.standard_normal((n_words + 1, GLOVE_DIM))
+           ).astype(np.float32)
+    os.makedirs(words_dir, exist_ok=True)
+    paths = {name: os.path.join(words_dir, f'{name}.npy')
+             for name in ('wordtoix', 'ixtoword', 'word_glove_fts_init')}
+    np.save(paths['wordtoix'], np.array(wordtoix, dtype=object))
+    np.save(paths['ixtoword'], np.array(ixtoword, dtype=object))
+    np.save(paths['word_glove_fts_init'], emb)
+    return paths
 
 
 def preprocess_sentence_charades(sentence: str) -> str:

@@ -197,13 +197,18 @@ def _run_steps(kind, model, state, params, rows, generator_seed, n):
             for _ in range(n)], step, gen
 
 
-def steps(inputs, kind='gmd', n=3, generator_seed=None):
+def steps(inputs, kind='gmd', n=3, generator_seed=None, grads=False):
     """``n`` train steps of ``kind`` on this rank's rows: the metrics and
-    the final weights."""
+    the final weights (``grads``: and the last step's gradients, after
+    the all-reduce)."""
     _, params, model, state, rows = _rank_setup(inputs, kind)
     metrics, _, _ = _run_steps(kind, model, state, params, rows,
                                generator_seed, n)
-    return {'metrics': metrics, 'weights': _clone(state.weights())}
+    out = {'metrics': metrics, 'weights': _clone(state.weights())}
+    if grads:
+        out['grads'] = {k: p.grad.detach().clone()
+                        for k, p in model.named_parameters()}
+    return out
 
 
 def _opt_tensors(sd):
@@ -213,13 +218,29 @@ def _opt_tensors(sd):
             for i, per in sd['optimizer']['state'].items()}
 
 
-def fsdp_steps(inputs, min_bytes, n=3, generator_seed=11, ckpt=None):
+def _sharded_grads(sharded):
+    """The full gradients the optimizer took in a ZeRO-3 update, by
+    parameter name: each split parameter's reduce-scattered slices
+    gathered, the replicated leaves' all-reduced gradients."""
+    from shufflingvideosfortsg_torch.parallel.fsdp import _gather
+    out = {sharded.names[id(p)]: _gather(shard.grad, dim, sharded.mesh)
+           for p, shard, dim in sharded.sharded if shard.grad is not None}
+    out.update({sharded.names[id(p)]: p.grad.detach().clone()
+                for p in sharded.replicated if p.grad is not None})
+    return out
+
+
+def fsdp_steps(inputs, min_bytes, n=3, generator_seed=11, ckpt=None,
+               grads=False):
     """``n`` GMD steps replicated on the mesh and ``n`` ZeRO-3-sharded
     (``min_bytes``) from the same weights and draws: each one's metrics,
     weights, full optimizer state and resident bytes, the plan, the
-    replicated leaves' bytes; then the sharded state's checkpoint round
-    trip: rank 0 writes ``ckpt`` (after the gather every rank joins), a
-    fresh sharded state resumes from it, and one more step of each."""
+    replicated leaves' bytes (``grads``: and the sharded run's gradients
+    of its first update, :func:`_sharded_grads`, and weights after it);
+    then the sharded state's
+    checkpoint round trip: rank 0 writes ``ckpt`` (after the gather every
+    rank joins), a fresh sharded state resumes from it, and one more step
+    of each."""
     import torch
     from shufflingvideosfortsg_torch.parallel.fsdp import (
         ShardedState, resident_state_bytes)
@@ -231,11 +252,19 @@ def fsdp_steps(inputs, min_bytes, n=3, generator_seed=11, ckpt=None):
         mesh, params, model, state, rows = _rank_setup(inputs, 'gmd')
         if name == 'sharded':
             state.sharded = ShardedState(state, mesh, min_bytes)
+        first = grads and name == 'sharded'
         metrics, step, gen = _run_steps('gmd', model, state, params, rows,
-                                        generator_seed, n)
+                                        generator_seed, 1 if first else n)
+        if first:
+            step1 = {'grads': _sharded_grads(state.sharded),
+                     'weights': _clone(state.weights())}
+            metrics += [{k: float(v) for k, v in step(rows, gen).items()}
+                        for _ in range(n - 1)]
         res = {'metrics': metrics, 'weights': _clone(state.weights()),
                'opt_state': _opt_tensors(state.state_dict()),
                'resident_bytes': resident_state_bytes(state)}
+        if first:
+            res['step1'] = step1
         if name == 'sharded':
             res['plan'] = state.sharded.plan
             opt = state.optimizer.state

@@ -30,17 +30,26 @@ def _setup(inputs, mesh):
     return params, model, state, rows
 
 
-def _run(step, state, rows, n, generator_seed):
+def _run(step, state, rows, n, generator_seed, model=None):
+    """``n`` updates; with ``model``, also the gradients of the last that
+    this rank holds (after the step's reductions), by parameter name."""
     gen = (None if generator_seed is None
            else torch.Generator().manual_seed(generator_seed))
     metrics = [step(rows, gen) for _ in range(n)]
-    return {'metrics': [{k: float(v) for k, v in m.items()}
-                        for m in metrics],
-            'weights': _clone(state.weights())}
+    out = {'metrics': [{k: float(v) for k, v in m.items()}
+                       for m in metrics],
+           'weights': _clone(state.weights())}
+    if model is not None:
+        out['grads'] = {k: p.grad.detach().clone()
+                        for k, p in model.named_parameters()
+                        if p.grad is not None and p.numel()}
+    return out
 
 
-def tp_steps(inputs, dp, mp, n=2, generator_seed=None, train_dropout=False):
-    """``n`` tensor-parallel GMD updates on a (dp, mp) mesh."""
+def tp_steps(inputs, dp, mp, n=2, generator_seed=None, train_dropout=False,
+             grads=False):
+    """``n`` tensor-parallel GMD updates on a (dp, mp) mesh (``grads``:
+    and the last one's gradients)."""
     from shufflingvideosfortsg_torch.parallel.tensor_parallel import \
         create_tp_mesh
     from shufflingvideosfortsg_torch.train.tp import make_gmd_tp_train_step
@@ -48,14 +57,16 @@ def tp_steps(inputs, dp, mp, n=2, generator_seed=None, train_dropout=False):
     params, model, state, rows = _setup(inputs, mesh)
     step = make_gmd_tp_train_step(model, state, params, mesh,
                                   train_dropout=train_dropout)
-    return _run(step, state, rows, n, generator_seed)
+    return _run(step, state, rows, n, generator_seed,
+                model if grads else None)
 
 
 def pp_steps(inputs, dp, pp, n_micro, n=2, generator_seed=None,
-             train_dropout=False):
+             train_dropout=False, grads=False):
     """``n`` pipelined GMD updates on a (dp, pp) mesh in ``n_micro``
     microbatches; the rank's resident parameter count and its gathered
-    trainer state."""
+    trainer state (``grads``: and the gradients of the last update that
+    the rank holds, its stage's and the replicated parameters')."""
     from shufflingvideosfortsg_torch.parallel.pipeline import create_pp_mesh
     from shufflingvideosfortsg_torch.train.pipelined import (
         make_gmd_pipelined_train_step, to_pipelined_state,
@@ -65,7 +76,7 @@ def pp_steps(inputs, dp, pp, n_micro, n=2, generator_seed=None,
     to_pipelined_state(state, mesh)
     step = make_gmd_pipelined_train_step(model, state, params, mesh, n_micro,
                                          train_dropout=train_dropout)
-    out = _run(step, state, rows, n, generator_seed)
+    out = _run(step, state, rows, n, generator_seed, model if grads else None)
     out['resident'] = sum(p.numel() for p in model.parameters())
     _, out['sidecar'] = to_sequential_state(state)
     return out

@@ -319,6 +319,30 @@ def _hold_grads(got, want, want_f32):
     return seen
 
 
+def hold_bf16_moves(what, got, want, before, grads, lr, wd, agree=None):
+    """Parameters after one bf16 Adam update (``got``) against the
+    reference's (``want``), both from ``before``, held by their moves, as
+    :func:`test_train_step_bf16_matches_jax` holds them: every element's
+    move within 2 lr of the reference's (Adam's first step is about lr
+    sign(g + wd p)), and in the tensors of ``agree`` (default: all; those
+    whose gradients agree within GRAD_REL_L2) the same way as the
+    reference's wherever what Adam took, the reference's gradient
+    ``grads`` plus the decay's wd p (``group_weight`` off: every tensor
+    decays), is at least 2^-5 of its tensor's largest. A skipped update,
+    or one that went the other way, fails there."""
+    assert set(got) == set(want) == set(before), what
+    for k, w0 in before.items():
+        moved, jmoved = got[k] - w0, want[k] - w0
+        far = (moved - jmoved).abs().max().item() if w0.numel() else 0.0
+        assert far <= 2 * lr + 1e-6, (what, k, far)
+        if agree is not None and k not in agree:
+            continue
+        taken = (grads[k] + wd * w0).abs()
+        big = taken >= 2 ** -5 * taken.max()
+        assert (torch.sign(moved[big]) == torch.sign(jmoved[big])).all(), (
+            what, k)
+
+
 @pytest.fixture(scope='module')
 def step_refs(jax_refs):
     """Per kind: the config (H=128, batches of 8, dropout off, JAX's fused

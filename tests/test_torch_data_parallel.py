@@ -25,7 +25,14 @@ restart), run at small widths (H=8, T=24, D=32, N=8), 4 rows a rank:
 - (f) ``--multi_seed 2`` at 2 ranks against its single-process run, and
   ``--multi_seed`` with ``--fsdp`` refused with JAX's message;
 - the baseline trainer at 2 ranks against its single-process run;
-- (h) a ``mesh_shape`` that disagrees with the world size raises.
+- (h) a ``mesh_shape`` that disagrees with the world size raises;
+- (i) ``precision: bf16``: one GMD step at 2 ranks x 2 rows (dropout on,
+  pseudo videos drawn on the device) against the one-process step at 4
+  rows, at the bf16 bounds of a train step (``PERF.md`` §2): the loss and
+  its terms 2^-6 relative, each gradient 2^-5 relative L2, each
+  parameter's move by the update within 2 lr of the one process's and
+  the same way where the gradient is large
+  (``test_torch_bf16_train.hold_bf16_moves``); the ranks bit for bit.
 
 On a card (``requires_cuda``, ``--noconftest``): the graphed ``main_train``
 on a bank in a one-rank NCCL group against the run with no group, bit
@@ -46,6 +53,10 @@ from shufflingvideosfortsg_torch import merge_submits
 from shufflingvideosfortsg_torch.data.pipeline import BatchLoader
 from shufflingvideosfortsg_torch.eval.iou import retrieval_eval
 from shufflingvideosfortsg_torch.parallel.mesh import create_mesh
+# the bf16 bounds of a train step
+from test_torch_bf16_train import GRAD_REL_L2 as BF16_REL_L2
+from test_torch_bf16_train import LOSS_RTOL as BF16_LOSS_RTOL
+from test_torch_bf16_train import hold_bf16_moves
 from torch_one_thread import one_torch_thread  # noqa: F401
 
 TINY = ['--cfg', 'charades_cd_i3d.yml', '--video_feature_dim', '32',
@@ -123,7 +134,9 @@ def step_inputs(root):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(7)
         weights = build_model(params, 'gmd', device='cpu').state_dict()
-    cases = {'b': (params, weights, {k: b[k] for k in TRAIN_KEYS})}
+    cases = {'b': (params, weights, {k: b[k] for k in TRAIN_KEYS}),
+             'bf16': (dict(params, precision='bf16'), weights,
+                      {k: b[k] for k in TRAIN_KEYS})}
     params = tt._params()
     _, jweights = tt._jax_setup(params)
     cases['c_gmd'] = (params, state_dict_from_jax(jweights),
@@ -150,7 +163,8 @@ def step_inputs(root):
 
 
 TASKS = ['entry', 'gmd', 'resume', 'baseline', 'multiseed', 'test_bank',
-         'test_npy', 'step_b', 'step_c_gmd', 'step_c_baseline', 'mesh_shape']
+         'test_npy', 'step_b', 'step_c_gmd', 'step_c_baseline', 'mesh_shape',
+         'step_bf16']
 
 
 @pytest.fixture(scope='module')
@@ -185,6 +199,8 @@ def ranks(tmp_path_factory):
         ['steps', {'inputs': inputs['c_gmd']}],
         ['steps', {'inputs': inputs['c_baseline'], 'kind': 'baseline'}],
         ['mesh_shape_error', {}],
+        ['steps', {'inputs': inputs['bf16'], 'generator_seed': 11, 'n': 1,
+                   'grads': True}],
     ]
     group = dp_group.launch(os.path.join(root, 'ranks'), tasks)
     cache = {}
@@ -314,7 +330,11 @@ def test_mesh_shape_that_disagrees_with_the_group_raises(ranks):
 
 # --- (b), (c) steps --------------------------------------------------------------
 
-def _one_process_steps(inputs, kind='gmd', generator_seed=None, n=3):
+def _one_process_steps(inputs, kind='gmd', generator_seed=None, n=3,
+                       grads=None):
+    """The one-process run of ``n`` steps on the inputs' whole batch:
+    (metrics, state dict); a dict ``grads`` receives the last step's
+    gradients."""
     from shufflingvideosfortsg_torch.models.build import build_model
     from shufflingvideosfortsg_torch.train.state import TrainState
     from shufflingvideosfortsg_torch.train.steps import (
@@ -329,6 +349,9 @@ def _one_process_steps(inputs, kind='gmd', generator_seed=None, n=3):
            else torch.Generator().manual_seed(generator_seed))
     metrics = [{k: float(v) for k, v in step(data['batch'], gen).items()}
                for _ in range(n)]
+    if grads is not None:
+        grads.update({k: p.grad.detach().clone()
+                      for k, p in model.named_parameters()})
     return metrics, model.state_dict()
 
 
@@ -345,6 +368,31 @@ def test_gmd_step_at_two_ranks_equals_one_process(ranks):
         np.testing.assert_allclose(got[0]['metrics'][0][k], metrics[0][k],
                                    rtol=LOSS_RTOL, atol=1e-7, err_msg=k)
     assert_close_weights(got[0]['weights'], weights, 'after 3 steps')
+
+
+def test_bf16_gmd_step_at_two_ranks_equals_one_process(ranks):
+    """(i) one bf16 GMD step at 2 ranks x 2 rows against one process at 4
+    rows: the loss and its terms (a term below one bf16 rounding of the
+    loss within that rounding), the gradients, the parameters."""
+    got = ranks['results']()['step_bf16']
+    grads = {}
+    metrics, weights = _one_process_steps(ranks['inputs']['bf16'],
+                                          generator_seed=11, n=1,
+                                          grads=grads)
+    assert_ranks_equal([r['weights'] for r in got])
+    assert_ranks_equal([r['grads'] for r in got])
+    assert got[0]['metrics'] == got[1]['metrics']
+    ulp = 2.0 ** -8 * abs(metrics[0]['loss'])
+    for k in ('loss', 'loss_g', 'loss_intra', 'loss_inter', 'loss_d'):
+        want = metrics[0][k]
+        assert abs(got[0]['metrics'][0][k] - want) <= max(
+            BF16_LOSS_RTOL * abs(want), ulp if k != 'loss' else 0.0), k
+    for k, g in grads.items():
+        assert rel_l2(got[0]['grads'][k], g) <= BF16_REL_L2, k
+    data = torch.load(ranks['inputs']['bf16'], weights_only=False)
+    hold_bf16_moves('bf16 step', got[0]['weights'], weights, data['weights'],
+                    grads, float(data['params']['lr']),
+                    float(data['params']['weight_decay']))
 
 
 def _jax_mesh_steps(kind, params, weights, batch, n=3):

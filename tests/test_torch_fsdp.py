@@ -18,7 +18,16 @@ deadline and one restart), at small widths:
   holds JAX's round trip);
 - ``main_train --fsdp`` at 2 ranks against the replicated 2-rank run,
   checkpoint for checkpoint, and ``--start_from`` of its checkpoint;
-- ``shard_dim``'s rule on the JAX function's own cases, in one process.
+- ``shard_dim``'s rule on the JAX function's own cases, in one process;
+- ``precision: bf16``: 3 sharded GMD steps at 2 ranks against the
+  one-process steps at the global batch, at the bf16 bounds of a train
+  step (``PERF.md`` §2): each step's loss and its terms 2^-6 relative,
+  the gradients of the first update (the reduce-scattered slices
+  gathered) 2^-5 relative L2, each parameter's move by that update
+  within 2 lr of the one process's and the same way where the gradient
+  is large (``test_torch_bf16_train.hold_bf16_moves``), after the third
+  every element within 2.5 lr an update (``utils/parity.py``); both
+  ranks alike.
 """
 
 import os
@@ -33,7 +42,8 @@ from shufflingvideosfortsg_torch.parallel.fsdp import shard_dim
 from torch_one_thread import one_torch_thread  # noqa: F401
 
 MIN_BYTES = 256  # small enough that the tiny model's matrices split
-TASKS = ['steps', 'fsdp_driver', 'replicated_driver', 'fsdp_resume']
+TASKS = ['steps', 'fsdp_driver', 'replicated_driver', 'fsdp_resume',
+         'steps_bf16']
 
 
 @pytest.fixture(scope='module')
@@ -53,6 +63,10 @@ def ranks(tmp_path_factory):
     torch.save({'params': params, 'weights': weights,
                 'batch': {k: torch.from_numpy(np.array(b[k]))
                           for k in TRAIN_KEYS}}, inputs)
+    inputs_bf16 = os.path.join(root, 'fsdp_steps_bf16.pt')
+    torch.save({'params': dict(params, precision='bf16'), 'weights': weights,
+                'batch': {k: torch.from_numpy(np.array(b[k]))
+                          for k in TRAIN_KEYS}}, inputs_bf16)
     base = argv + tdp.LOCAL + tdp.feat_argv(pack) + [
         '--epoch', '1', '--fsdp_min_bytes', str(MIN_BYTES)]
     fsdp_ckp = os.path.join(root, 'runs', 'dp_fsdp', 'model',
@@ -66,6 +80,9 @@ def ranks(tmp_path_factory):
         ['driver', {'argv': base + ['--alias', 'dp_fsdp_resume', '--fsdp',
                                     '--start_from', fsdp_ckp],
                     'entry': 'train'}],
+        ['fsdp_steps', {'inputs': inputs_bf16, 'min_bytes': MIN_BYTES,
+                        'ckpt': os.path.join(root, 'round_trip_bf16.ckp'),
+                        'grads': True}],
     ]
     group = dp_group.launch(os.path.join(root, 'ranks'), tasks)
     cache = {}
@@ -80,7 +97,7 @@ def ranks(tmp_path_factory):
     from shufflingvideosfortsg_torch import cli
     updates = 32 // 8  # an epoch's updates at the global batch
     return dict(results=results, params=params, weights=weights, root=root,
-                argv=base,
+                argv=base, inputs_bf16=inputs_bf16,
                 drift=2 * float(cli.parse_params(argv)['lr']) * updates)
 
 
@@ -140,6 +157,44 @@ def test_sharded_steps_equal_replicated_steps(ranks):
         for k, v in per.items():
             err = tdp.rel_l2(s['sharded']['opt_state'][i][k], v)
             assert err <= tdp.PARAM_REL_L2, (i, k, err)
+
+
+def test_bf16_sharded_steps_equal_one_process(ranks):
+    """3 ZeRO-3-sharded bf16 steps at 2 ranks against the one-process
+    steps at the global batch, from the same weights and draws: the first
+    update's gradients and moves, each update's loss terms, the weights
+    after the third."""
+    from shufflingvideosfortsg_torch.utils.parity import ADAM_STEPS
+    got = ranks['results']()['steps_bf16']
+    for part in ('weights', 'grads'):
+        tdp.assert_ranks_equal([r['sharded']['step1'][part] for r in got])
+    tdp.assert_ranks_equal([r['sharded']['weights'] for r in got])
+    s = got[0]['sharded']
+    grads = {}
+    first, step1 = tdp._one_process_steps(ranks['inputs_bf16'],
+                                          generator_seed=11, n=1, grads=grads)
+    step1 = {k: v.clone() for k, v in step1.items()}
+    metrics, weights = tdp._one_process_steps(ranks['inputs_bf16'],
+                                              generator_seed=11)
+    assert first[0] == metrics[0]
+    assert set(s['step1']['grads']) == set(grads)
+    for k, g in grads.items():
+        assert tdp.rel_l2(s['step1']['grads'][k], g) <= tdp.BF16_REL_L2, k
+    lr = float(ranks['params']['lr'])
+    tdp.hold_bf16_moves('bf16 sharded, update 1', s['step1']['weights'],
+                        step1, ranks['weights'], grads, lr,
+                        float(ranks['params']['weight_decay']))
+    for i, m in enumerate(metrics):
+        ulp = 2.0 ** -8 * abs(m['loss'])
+        for k in ('loss', 'loss_g', 'loss_intra', 'loss_inter', 'loss_d'):
+            assert abs(s['metrics'][i][k] - m[k]) <= max(
+                tdp.BF16_LOSS_RTOL * abs(m[k]),
+                ulp if k != 'loss' else 0.0), (i, k)
+    # after the third update: every element within the parity rule's
+    # Adam-step bound (utils/parity.py) of the one process's
+    for k, v in weights.items():
+        far = (s['weights'][k] - v).abs().max().item() if v.numel() else 0.0
+        assert far <= ADAM_STEPS * lr * len(metrics), (k, far)
 
 
 def test_checkpoint_round_trip(ranks):

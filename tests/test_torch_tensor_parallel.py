@@ -18,9 +18,20 @@ two (a (1, 2) mesh) and one of four (a (2, 2) mesh), at JAX's test sizes
   against ``ops/rnn.BiLSTM``;
 - (e) the parity rule of the parallel checks (``utils/parity.py``,
   fault F7): 8 updates at 1x2 with dropout on against one process; and
-  the rule itself on made-up runs;
+  the rule itself, and its bf16 gradient rule, on made-up runs;
 - (f) JAX's refusals, with JAX's messages; ``python -m
-  shufflingvideosfortsg_torch.train --tensor_parallel 2`` under torchrun.
+  shufflingvideosfortsg_torch.train --tensor_parallel 2`` under torchrun;
+- (g) ``precision: bf16``: one update at 1x2 against JAX's TP step at
+  bf16 (its loss compiled with XLA's excess precision off, the bf16
+  einsums widened, ``tests/jax_cpu.py``) at the bf16 bounds of a train
+  step (``tests/test_torch_bf16_train.py``): the loss and its terms 2^-6
+  relative (a term below one bf16 rounding of the loss within that
+  rounding), each gradient 2^-5 relative L2 (or, where JAX's bf16
+  gradient is itself that far from its f32 one, ``_hold_grads``'s
+  rule), each parameter's move by the Adam update within 2 lr of JAX's
+  and, where the gradients agree, the same way as JAX's where the
+  gradient is large (``test_torch_bf16_train.hold_bf16_moves``); the
+  ranks bit for bit.
 """
 
 import os
@@ -37,6 +48,7 @@ LR = 1e-3
 LOSS_REL, LOSS_ABS = 2e-4, 2e-5
 P_RTOL, P_ATOL = 5e-4, 5e-6
 F7_UPDATES = 8
+BF16_TERMS = ('loss', 'loss_g', 'loss_intra', 'loss_inter', 'loss_d')
 
 
 def _overrides(**over):
@@ -115,6 +127,112 @@ def jax_run(model, params, weights, batch, step, n=2, to_sequential=None):
     nblocks = sum(k.startswith('block') for k in tree['video_encoder'])
     return ({k: float(v) for k, v in metrics.items()},
             state_dict_from_jax(tree, nblocks=nblocks))
+
+
+def _port_tree(tree):
+    """A JAX GMD tree (sequential layout) as the port's state dict."""
+    from shufflingvideosfortsg_torch.utils.interop import state_dict_from_jax
+    return state_dict_from_jax(tree, nblocks=sum(
+        k.startswith('block') for k in tree['video_encoder']))
+
+
+def jax_bf16_ref(step, params, weights, batch, f32_grads,
+                 to_sequential=None):
+    """JAX's bf16 update of ``step`` (a TP or pipelined step at
+    ``precision: bf16``) from ``weights``: its loss terms and gradients,
+    with ``step.loss_fn`` compiled with XLA's excess precision off and
+    the bf16 einsums of the BiLSTM and the sharded recurrence widened
+    (``tests/jax_cpu.py``: XLA on the CPU cannot run a BF16 x BF16 = F32
+    product), and the parameters after one Adam update of those
+    gradients; ``f32_grads`` (JAX's f32 gradients of the same weights,
+    for ``_hold_grads``) passes through. Gradients and parameters (before
+    and after the update) as the port's state dicts (``to_sequential``
+    first, for a pipelined layout)."""
+    import jax
+    import jax.numpy as jnp
+    import shufflingvideosfortsg_tpu.ops.rnn as jax_rnn
+    import shufflingvideosfortsg_tpu.parallel.tensor_parallel as jax_tp
+    from jax_cpu import _no_excess, _WidenedEinsum
+    from shufflingvideosfortsg_tpu.train.state import (create_train_state,
+                                                       make_optimizer)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    pseudo = {k[len('pseudo_'):]: v for k, v in jb.items()
+              if k.startswith('pseudo_')}
+    with pytest.MonkeyPatch.context() as m:
+        for module in (jax_rnn, jax_tp):
+            m.setattr(module, 'jnp', _WidenedEinsum())
+        (_, aux), grads = _no_excess(
+            jax.value_and_grad(step.loss_fn, has_aux=True), weights, jb,
+            pseudo, jax.random.PRNGKey(0))
+    state = create_train_state(weights, make_optimizer(params,
+                                                       steps_per_epoch=10))
+    after = jax.tree.map(np.asarray, state.apply_gradients(grads).params)
+    grads = jax.tree.map(np.asarray, grads)
+    before = jax.tree.map(np.asarray, weights)
+    if to_sequential is not None:
+        after, grads, before = map(to_sequential, (after, grads, before))
+    return {'terms': {k: float(aux[k]) for k in BF16_TERMS},
+            'lr': params['lr'], 'wd': params['weight_decay'],
+            'grads': _port_tree(grads), 'f32_grads': f32_grads,
+            'before': _port_tree(before), 'weights': _port_tree(after)}
+
+
+def jax_f32_grads(model, params, weights, batch):
+    """JAX's plain f32 step's gradients at ``weights``, as a state dict."""
+    import jax
+    import jax.numpy as jnp
+    from shufflingvideosfortsg_tpu.train.steps import make_gmd_train_step
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    pseudo = {k[len('pseudo_'):]: v for k, v in jb.items()
+              if k.startswith('pseudo_')}
+    loss_fn = make_gmd_train_step(model, params).loss_fn
+    _, grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        weights, jb, pseudo, jax.random.PRNGKey(0))
+    return _port_tree(jax.tree.map(np.asarray, grads))
+
+
+def hold_bf16_update(got, ref, one_process=None, own_step=()):
+    """A port rank's bf16 update (its metrics, gradients and weights)
+    against :func:`jax_bf16_ref`'s: the loss terms, each gradient by
+    ``_hold_grads``, the parameters by ``hold_bf16_moves``. A gradient
+    named in ``own_step`` may instead lie within 2^-5 relative L2 of
+    ``one_process`` (the port's one-process bf16 gradients at the same
+    weights and batch): where the two packages' parallel steps round the
+    recurrence at other points (the pipe axis: JAX's stages run
+    ``lax.scan`` with h and c in bf16, the port's K3/K4 with c in f32), the
+    check is that the parallel step adds nothing to the port's own bf16
+    step, which ``tests/test_torch_bf16_train.py`` holds against JAX's
+    kernels. Returns the names held that way."""
+    from test_torch_bf16_train import (GRAD_REL_L2, LOSS_RTOL, _hold_grads,
+                                       _rel_l2, hold_bf16_moves)
+    metrics = got['metrics'][-1]
+    # a term below one bf16 rounding of the loss (loss_inter, a KL of two
+    # nearly equal distributions: 2.3e-05 of a loss of 7.6) is held to
+    # that rounding, 2^-8 of the loss
+    ulp = 2.0 ** -8 * abs(ref['terms']['loss'])
+    for k in BF16_TERMS:
+        want = ref['terms'][k]
+        assert abs(metrics[k] - want) <= max(LOSS_RTOL * abs(want),
+                                             ulp if k != 'loss' else 0.0), (
+            k, metrics[k], want)
+    assert set(got['grads']) == set(ref['grads'])
+    held_by_own_step, agree = [], set()
+    for k, g in got['grads'].items():
+        try:
+            seen = _hold_grads({k: g}, ref['grads'], ref['f32_grads'])
+        except AssertionError:
+            if k not in own_step:
+                raise
+            assert _rel_l2(g.numpy(), one_process[k].numpy()) <= \
+                GRAD_REL_L2, k
+            held_by_own_step.append(k)
+            continue
+        if seen[k][0] <= GRAD_REL_L2:
+            agree.add(k)
+    hold_bf16_moves('bf16 update', got['weights'], ref['weights'],
+                    ref['before'], ref['grads'], float(ref['lr']),
+                    float(ref['wd']), agree=agree)
+    return held_by_own_step
 
 
 def save_inputs(path, params, weights, batch):
@@ -203,7 +321,9 @@ def tp(tmp_path_factory):
                          port_params(grad_accum_steps=2), sd, batch),
         'c': save_inputs(os.path.join(root, 'c.pt'),
                          port_params(dropout=0.5, disc_dropout=0.5,
-                                     on_device_aug=True), sd, batch)}
+                                     on_device_aug=True), sd, batch),
+        'bf16': save_inputs(os.path.join(root, 'bf16.pt'),
+                            port_params(precision='bf16'), sd, batch)}
     tasks2 = [
         ['mp_ranks:tp_steps', {'inputs': inputs['a'], 'dp': 1, 'mp': 2}],
         ['mp_ranks:tp_steps', {'inputs': inputs['b'], 'dp': 1, 'mp': 2}],
@@ -216,12 +336,15 @@ def tp(tmp_path_factory):
         ['driver', {'argv': tiny_corpus(root, ['--tensor_parallel', '2'])
                     + ['--alias', 'tp_entry', '--epoch', '1'],
                     'entry': 'train', 'maker': 'make_gmd_tp_train_step',
-                    'module': 'shufflingvideosfortsg_torch.train'}]]
+                    'module': 'shufflingvideosfortsg_torch.train'}],
+        ['mp_ranks:tp_steps', {'inputs': inputs['bf16'], 'dp': 1, 'mp': 2,
+                               'n': 1, 'grads': True}]]
     two = dp_group.launch(os.path.join(root, 'two'), tasks2)
     four = dp_group.launch(os.path.join(root, 'four'), [
         ['mp_ranks:tp_steps', {'inputs': inputs['a'], 'dp': 2, 'mp': 2}]],
         world=4)
 
+    from shufflingvideosfortsg_tpu.models import build_model
     from shufflingvideosfortsg_tpu.parallel.tensor_parallel import \
         create_tp_mesh
     from shufflingvideosfortsg_tpu.train.steps import make_gmd_train_step
@@ -236,11 +359,18 @@ def tp(tmp_path_factory):
     accum = jax_params(grad_accum_steps=2)
     refs['accum'] = jax_run(model, accum, weights, batch,
                             make_gmd_train_step(model, accum))
+    bf16 = jax_params(precision='bf16')
+    bf16_model = build_model(bf16, 'gmd')
+    refs['bf16'] = jax_bf16_ref(
+        make_gmd_tp_train_step(bf16_model, bf16, create_tp_mesh(1, 2),
+                               train_dropout=False),
+        bf16, weights, batch, jax_f32_grads(model, params, weights, batch))
     cache = {}
 
     def results():
         if not cache:
-            names = ['1x2', 'accum', 'dropout', 'f7', 'bilstm', 'driver']
+            names = ['1x2', 'accum', 'dropout', 'f7', 'bilstm', 'driver',
+                     'bf16']
             per_rank = two.results()
             cache.update({n: [r[i] for r in per_rank]
                           for i, n in enumerate(names)})
@@ -283,6 +413,19 @@ def test_tp_ranks_agree_bit_for_bit(tp, mesh):
         assert r['metrics'] == runs[0]['metrics']
         assert all(torch.equal(v, r['weights'][k])
                    for k, v in runs[0]['weights'].items())
+
+
+def test_tp_bf16_step_equals_jax(tp):
+    """(g) one TP update at 1x2 with ``precision: bf16`` against JAX's TP
+    step at bf16; the two ranks bit for bit."""
+    results, refs, _ = tp
+    runs = results()['bf16']
+    hold_bf16_update(runs[0], refs['bf16'])
+    for r in runs[1:]:
+        assert r['metrics'] == runs[0]['metrics']
+        for part in ('weights', 'grads'):
+            assert all(torch.equal(v, r[part][k])
+                       for k, v in runs[0][part].items()), part
 
 
 def test_tp_grad_accum_equals_jax(tp):
@@ -390,6 +533,41 @@ def test_parity_rule(case):
         return
     res = hold_weights(case, got, want, LR, F7_UPDATES)
     assert res['adam_leaves'] == ([] if case == 'exact' else ['b'])
+
+
+@pytest.mark.parametrize('case', ['within', 'noise', 'past_noise',
+                                  'off_signal', 'cross_budget'])
+def test_bf16_gradient_rule(case):
+    """(e) the bf16 gradient rule (``hold_bf16_grads``) on made-up
+    gradients: a leaf within 2^-5 relative L2 of one process's bf16
+    gradient passes; a leaf whose f32 gradient is 0 but for rounding
+    passes while it lies no farther from it than twice one process's bf16
+    gradient, and fails past that; a leaf with a real gradient 2^-4 off
+    fails, and one 2^-4.5 off passes at the doubled budget of other
+    rounding points (``BF16_CROSS_REL_L2``) but not at 2^-5."""
+    from shufflingvideosfortsg_torch.utils.parity import (BF16_CROSS_REL_L2,
+                                                          hold_bf16_grads)
+    g = torch.Generator().manual_seed(0)
+    f32 = {'a': torch.randn(1000, generator=g),
+           'b': torch.randn(10, generator=g) * 1e-9}
+    want = {'a': f32['a'] * (1 + 2.0 ** -9),
+            'b': torch.randn(10, generator=g) * 1e-3}
+    got = {k: v.clone() for k, v in want.items()}
+    got['a'] += {'off_signal': 2.0 ** -4, 'cross_budget': 2.0 ** -4.5}.get(
+        case, 2.0 ** -7) * \
+        f32['a'].norm() * torch.randn(1000, generator=g) / 1000 ** 0.5
+    got['b'] = {'within': want['b'] * (1 + 2.0 ** -7),
+                'past_noise': -2.5 * want['b']}.get(
+        case, torch.randn(10, generator=g) * 1e-3)
+    if case == 'cross_budget':
+        hold_bf16_grads(case, got, want, f32, BF16_CROSS_REL_L2)
+    if case in ('past_noise', 'off_signal', 'cross_budget'):
+        leaf = 'b' if case == 'past_noise' else 'a'
+        with pytest.raises(AssertionError, match=f'gradient of {leaf} '):
+            hold_bf16_grads(case, got, want, f32)
+        return
+    res = hold_bf16_grads(case, got, want, f32)
+    assert res['f32_clause_leaves'] == ([] if case == 'within' else ['b'])
 
 
 # --- (f) JAX's refusals ----------------------------------------------------
